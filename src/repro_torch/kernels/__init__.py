@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels for the §7 detector and their wrappers.
+
+* ``fused_mlp`` — the whole Dense stack in ONE launch (``csrc/fused_mlp.cu``).
+* ``qmatmul`` — int8 GEMM with fused dequantization (``csrc/qmatmul.cu``).
+
+``ops`` holds the public wrappers and the ``backend`` contract, ``ref`` the
+plain PyTorch versions, ``build`` the nvcc build and ctypes loading.
+"""

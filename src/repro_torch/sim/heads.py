@@ -1,0 +1,296 @@
+"""Detector heads: what a detection workload computes *after* the MLP body.
+
+The serving half of ``repro.sim.heads`` in PyTorch (training losses and the
+Structured Text export hooks are not ported yet):
+
+* :class:`ClassifierHead` — the §7 classifier: verdict = argmax class with
+  its softmax probability.
+* :class:`ReconstructionHead` — autoencoder: anomaly score = per-window mean
+  squared reconstruction error.
+* :class:`MarginHead` — one-class margin: score = mean squared distance of
+  the embedding from a fixed benign ``center``.
+* :class:`ForecastHead` — next-step prediction: the model maps the window's
+  first ``W - 1`` readings to the ``W``-th; score = squared forecast error.
+
+A head contributes the window-geometry contract (``ring_window`` /
+``model_input_size``), the device-side model-input view (``prepare``) and
+verdict reduction (``epilogue``, torch ops inside the engine's step), and the
+host-side verdict (``host_verdicts``, numpy).  Score heads also own their
+threshold calibration (``calibrate``, the conservative quantile) and the
+streaming recalibration state (``calib_state`` / ``calib_update`` on the
+device, ``streaming_threshold`` on the host).  Host-side code is the
+reference's numpy, so verdicts agree bit for bit on equal step outputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_device
+
+
+def softmax_np(logits: np.ndarray) -> np.ndarray:
+    """Batched-stable host softmax: subtracts the per-row max along the last
+    axis before exponentiating, so rows of extreme logits never overflow
+    ``exp``."""
+    z = logits - logits.max(axis=-1, keepdims=True)
+    e = np.exp(z)
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def conservative_quantile(scores: np.ndarray, target_fpr: float) -> float:
+    """The ``(1 - target_fpr)`` empirical quantile, rounded UP to an actual
+    order statistic (``method="higher"``), so ``mean(scores > q)`` — the
+    realized FPR on the calibration scores themselves — is ≤ ``target_fpr``
+    even on small calibration sets."""
+    return float(np.quantile(np.asarray(scores, np.float64), 1.0 - target_fpr,
+                             method="higher"))
+
+
+class DetectorHead:
+    """Base: the device epilogue / host verdict of one workload."""
+
+    name: str = "?"
+
+    def validate(self, input_size: int, n_outputs: int) -> None:
+        """Raise early (engine construction) if the model can't carry this
+        head; the default accepts any output width."""
+
+    def ring_window(self, input_size: int, n_features: int) -> int:
+        """Ring readings per verdict window for a model of ``input_size``:
+        by default the window IS the model input."""
+        if input_size % n_features:
+            raise ValueError(
+                f"model input {input_size} is not a whole number of "
+                f"{n_features}-feature readings")
+        return input_size // n_features
+
+    def model_input_size(self, window: int, n_features: int) -> int:
+        """Model input width for a ``window``-reading ring — the inverse of
+        :meth:`ring_window`."""
+        return window * n_features
+
+    def prepare(self, win: torch.Tensor) -> torch.Tensor:
+        """Device-side model-input view of the batched ``(S, window x F)``
+        window.  The default feeds the whole window."""
+        return win
+
+    def epilogue(self, win: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """Device-side reduction from raw model outputs to the per-stream
+        verdict payload."""
+        raise NotImplementedError
+
+    def host_verdicts(self, out: np.ndarray,
+                      threshold: Optional[float] = None) -> Tuple[
+            np.ndarray, Optional[np.ndarray], Optional[np.ndarray],
+            Optional[float]]:
+        """Step output -> (pred, prob|None, score|None, threshold|None).
+        ``threshold`` overrides the head's own calibrated cutoff (the
+        engine's live threshold)."""
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierHead(DetectorHead):
+    """Supervised classifier: argmax verdict (§7's head)."""
+
+    name: str = "classifier"
+
+    def epilogue(self, win, out):
+        return out                      # the logits ARE the verdict payload
+
+    def host_verdicts(self, out, threshold=None):
+        pred = out.argmax(axis=-1)
+        prob = softmax_np(out)[np.arange(len(out)), pred]
+        return pred.astype(np.int64), prob, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ScoreHead(DetectorHead):
+    """Base for score-vs-threshold heads (every unsupervised workload).
+
+    Subclasses define :meth:`batch_scores`; the base gives the device
+    epilogue ((S, 1) scores), the host verdict (strict ``score >
+    threshold``), conservative FPR calibration and streaming recalibration.
+    ``threshold`` is None until calibrated; serving requires it.
+    """
+
+    threshold: Optional[float] = None
+    target_fpr: Optional[float] = None
+    name: str = "score"
+
+    def batch_scores(self, outputs: torch.Tensor,
+                     x: torch.Tensor) -> torch.Tensor:
+        """Per-window anomaly scores ``(B,)`` from batched model outputs
+        (``x`` is the full window batch, before :meth:`prepare`)."""
+        raise NotImplementedError
+
+    def validate(self, input_size: int, n_outputs: int) -> None:
+        if self.threshold is None:
+            raise ValueError(
+                f"{type(self).__name__} has no threshold; calibrate it on "
+                "held-out normal traces first (head.calibrate)")
+
+    def epilogue(self, win, out):
+        # On-device score reduction: one float per stream leaves the device.
+        return self.batch_scores(out, win)[:, None]
+
+    def calibrate(self, normal_scores: np.ndarray,
+                  target_fpr: float) -> "ScoreHead":
+        """A new head whose threshold realizes at most ``target_fpr`` false
+        positives on the given held-out *normal* window scores."""
+        if not 0.0 < target_fpr < 1.0:
+            raise ValueError(f"target_fpr must be in (0, 1), got {target_fpr}")
+        scores = np.asarray(normal_scores, np.float64)
+        if scores.size == 0:
+            raise ValueError("cannot calibrate on zero normal scores")
+        return dataclasses.replace(
+            self, threshold=conservative_quantile(scores, target_fpr),
+            target_fpr=target_fpr)
+
+    def host_verdicts(self, out, threshold=None):
+        thr = self.threshold if threshold is None else threshold
+        if thr is None:
+            raise ValueError(
+                f"{type(self).__name__} has no threshold; calibrate it on "
+                "held-out normal traces first (head.calibrate)")
+        score = out[:, 0] if out.ndim == 2 else out
+        pred = (score > thr).astype(np.int64)
+        return pred, None, score, thr
+
+    # -- streaming recalibration (online drift adaptation) -----------------
+
+    def calib_state(self, n_streams: int, capacity: int,
+                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Zeroed per-stream rolling calibration state: a ``(n_streams,
+        capacity)`` ring of admitted scores plus ``(n_streams,)`` admission
+        counts."""
+        return (torch.zeros((n_streams, capacity), dtype=torch.float32,
+                            device=device),
+                torch.zeros((n_streams,), dtype=torch.int32, device=device))
+
+    def calib_update(self, ring: torch.Tensor, counts: torch.Tensor,
+                     scores: torch.Tensor, threshold: float,
+                     headroom: float) -> None:
+        """Device-side state transition, in place: each stream's score enters
+        its rolling ring iff it is at most ``headroom`` times the live
+        ``threshold`` (scores beyond it are treated as attacks and never
+        poison the calibration state)."""
+        s = scores[:, 0] if scores.ndim == 2 else scores
+        # The reference admits against f32(headroom) * f32(threshold), one
+        # f32 multiply; numpy does the same multiply on the host.
+        limit = float(np.float32(headroom) * np.float32(threshold))
+        admit = s <= limit
+        pos = (counts % ring.shape[1]).long()
+        rows = torch.arange(ring.shape[0], device=ring.device)
+        ring[rows, pos] = torch.where(admit, s, ring[rows, pos])
+        counts += admit.to(counts.dtype)
+
+    def streaming_scores(self, ring, counts) -> np.ndarray:
+        """Host-side: the pooled valid scores in a gathered calibration
+        state (slot ``j`` of a stream holds a real score iff ``j < count``)."""
+        ring = np.asarray(ring)
+        counts = np.asarray(counts)
+        valid = np.arange(ring.shape[1])[None, :] < counts[:, None]
+        return ring[valid]
+
+    def streaming_threshold(self, ring, counts, *,
+                            min_count: int = 1) -> Optional[float]:
+        """Host-side: the conservative ``(1 - target_fpr)`` quantile of the
+        pooled valid ring scores; None (leave the live threshold alone)
+        until ``min_count`` scores have been admitted fleet-wide."""
+        if self.target_fpr is None:
+            raise ValueError(
+                f"{type(self).__name__} has no target_fpr; calibrate via "
+                "head.calibrate (or construct with target_fpr=) before "
+                "streaming recalibration")
+        scores = self.streaming_scores(ring, counts)
+        if scores.size < max(min_count, 1):
+            return None
+        return conservative_quantile(scores, self.target_fpr)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReconstructionHead(ScoreHead):
+    """Unsupervised autoencoder: anomaly score = per-window mean squared
+    reconstruction error, verdict = score over the calibrated threshold."""
+
+    name: str = "reconstruction"
+
+    def validate(self, input_size: int, n_outputs: int) -> None:
+        if n_outputs != input_size:
+            raise ValueError(
+                f"ReconstructionHead needs an autoencoder whose output width "
+                f"({n_outputs}) equals its input width ({input_size})")
+        super().validate(input_size, n_outputs)
+
+    def batch_scores(self, outputs, x):
+        return torch.mean(torch.square(outputs - x), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class MarginHead(ScoreHead):
+    """Unsupervised one-class margin (Deep-SVDD-style): anomaly score = mean
+    squared distance of the embedding from the benign ``center``."""
+
+    center: Optional[Tuple[float, ...]] = None
+    name: str = "margin"
+
+    def validate(self, input_size: int, n_outputs: int) -> None:
+        if self.center is None:
+            raise ValueError(
+                "MarginHead has no center; fit one on benign windows first")
+        if len(self.center) != n_outputs:
+            raise ValueError(
+                f"MarginHead center has {len(self.center)} dims but the "
+                f"model embeds into {n_outputs}")
+        super().validate(input_size, n_outputs)
+
+    def batch_scores(self, outputs, x):
+        center = to_device(np.asarray(self.center, np.float32), outputs.device)
+        return torch.mean(torch.square(outputs - center), dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class ForecastHead(ScoreHead):
+    """Unsupervised next-step prediction: the model maps the window's first
+    ``W - 1`` readings to a forecast of the ``W``-th; the score is the mean
+    squared forecast error against the reading that arrived.  The ring holds
+    one more reading than the model eats (:meth:`ring_window`), and
+    :meth:`prepare` slices the model input off the front of each window."""
+
+    n_features: int = 2
+    name: str = "forecast"
+
+    def ring_window(self, input_size: int, n_features: int) -> int:
+        if n_features != self.n_features:
+            raise ValueError(
+                f"ForecastHead was built for {self.n_features} features, "
+                f"engine has {n_features}")
+        if input_size % n_features:
+            raise ValueError(
+                f"forecast model input {input_size} is not a whole number "
+                f"of {n_features}-feature readings")
+        return input_size // n_features + 1
+
+    def model_input_size(self, window: int, n_features: int) -> int:
+        return (window - 1) * n_features
+
+    def prepare(self, win):
+        return win[..., :-self.n_features]
+
+    def validate(self, input_size: int, n_outputs: int) -> None:
+        if n_outputs != self.n_features:
+            raise ValueError(
+                f"ForecastHead predicts one {self.n_features}-feature "
+                f"reading but the model outputs {n_outputs}")
+        super().validate(input_size, n_outputs)
+
+    def batch_scores(self, outputs, x):
+        # x is the FULL window batch; the target is its last reading.
+        return torch.mean(torch.square(outputs - x[..., -self.n_features:]),
+                          dim=-1)

@@ -1,0 +1,69 @@
+"""The port stands alone: no file of ``repro_torch`` (nor ``chip_smoke.py``)
+imports JAX or the reference package, and its entry points run on the card
+unless the caller asks for the CPU — they never fall back to it quietly."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bridge import params_from_numpy
+from repro_torch.core.quantize import calibration_samples
+from repro_torch.serving import StreamEngine
+from repro_torch.sim import build_detector
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", None)) in (
+                    "import_module", "__import__"):
+            for arg in node.args[:1]:
+                if isinstance(arg, ast.Constant):
+                    yield arg.value
+
+
+def test_port_files_exist():
+    assert (ROOT / "chip_smoke.py").exists()
+    assert len(PORT_FILES) > 15
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    for name in imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), \
+            f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_detector()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        model.init_params(torch.Generator().manual_seed(0))
+    cpu_params = model.init_params(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamEngine(model, cpu_params, n_streams=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_numpy({1: {"w": np.zeros((2, 2), np.float32)}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calibration_samples(np.zeros((4, 400), np.float32))
+    # The explicit CPU request is honoured.
+    assert StreamEngine(model, cpu_params, n_streams=2,
+                        device="cpu").device.type == "cpu"

@@ -1,0 +1,159 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on the card, at the shapes ``chip_smoke.py`` drives.  Every test here needs
+an NVIDIA GPU and nvcc and skips without CUDA (the kernels have no CPU
+mode); run them on the card with
+``PYTHONPATH=src python -m pytest -q tests/test_torch_kernels.py``.
+
+Tolerances: SINT is bit-exact (``torch.equal``: integer accumulation and an
+unfused requantize on both sides).  REAL within 1e-5 (f32 FMA dot in the
+kernel against cuBLAS's summation order).  DINT within 1e-4: the emulated
+integer products pass 2**24, so f32 rounding follows the summation order.
+INT within 1e-3: the same, and a last-bit difference ahead of a requantize
+can move an INT activation code by one step (1/32767 of its calibrated
+range), which the next layer's weights carry to the output (measured up to
+1.5e-4 on the card).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import layers as TL
+from repro_torch.core import quantize, sequential
+from repro_torch.kernels import fused_mlp, ops, qmatmul, ref
+from repro_torch.serving import StreamEngine
+from repro_torch.sim import build_autoencoder, build_detector, fleet_readings
+
+torch.set_num_threads(1)
+pytestmark = pytest.mark.cuda
+
+TOL = {"REAL": 1e-5, "INT": 1e-3, "DINT": 1e-4}
+BUILDERS = {"detector": build_detector, "autoencoder": build_autoencoder}
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def card_model(kind, scheme, seed=0):
+    model = BUILDERS[kind]()
+    params = model.init_params(torch.Generator().manual_seed(seed),
+                               device="cuda")
+    if scheme != "REAL":
+        calib = np.random.default_rng(seed).standard_normal(
+            (8, 400)).astype(np.float32)
+        params = quantize.quantize_params(
+            model, params, scheme,
+            calibration=quantize.calibration_samples(calib, k=8))
+    return model, params
+
+
+def check(scheme, got, want):
+    torch.cuda.synchronize()
+    if scheme == "SINT":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=TOL[scheme],
+                                   atol=TOL[scheme])
+
+
+@pytest.mark.parametrize("m", (1024, 1000, 37))
+@pytest.mark.parametrize("scheme", ("REAL", "SINT", "INT", "DINT"))
+@pytest.mark.parametrize("kind", sorted(BUILDERS))
+def test_fused_mlp_matches_plain(kind, scheme, m):
+    model, params = card_model(kind, scheme)
+    stack = ops.dense_stack(model, params)
+    x = torch.randn((m, 400), generator=torch.Generator().manual_seed(m)) \
+        .cuda()
+    before = fused_mlp.launches
+    got = ops.fused_forward(x, stack)
+    assert fused_mlp.launches == before + 1
+    check(scheme, got, ref.fused_mlp_ref(x, stack))
+
+
+def act_model(acts, widths, scheme):
+    model = sequential([TL.Input()] + [TL.Dense(units=w, activation=a)
+                                       for w, a in zip(widths, acts)], (400,))
+    params = model.init_params(torch.Generator().manual_seed(5),
+                               device="cuda")
+    if scheme == "SINT":
+        calib = np.random.default_rng(5).standard_normal(
+            (8, 400)).astype(np.float32)
+        params = quantize.quantize_params(
+            model, params, scheme,
+            calibration=quantize.calibration_samples(calib, k=8))
+    return ops.dense_stack(model, params)
+
+
+def test_fused_mlp_continuous_activations():
+    """Every continuous activation the kernel implements, one per layer, in
+    f32 (libm's expf/tanhf against PyTorch's: within the REAL tolerance)."""
+    acts = ["sigmoid", "tanh", "elu", "leaky_relu", "swish", "relu", "linear"]
+    stack = act_model(acts, [64, 48, 32, 32, 24, 16, 8], "REAL")
+    x = 2.0 * torch.randn((1000, 400),
+                          generator=torch.Generator().manual_seed(1)).cuda()
+    check("REAL", ops.fused_forward(x, stack), ref.fused_mlp_ref(x, stack))
+
+
+def test_fused_mlp_binary_step_sint():
+    """binary_step is discontinuous at 0, so it is checked where its input
+    is exact: after a SINT layer (integer dot, unfused requantize), whose
+    0/1 outputs the next SINT layer quantizes exactly."""
+    stack = act_model(["binary_step", "linear"], [64, 2], "SINT")
+    x = torch.randn((1000, 400), generator=torch.Generator().manual_seed(2)) \
+        .cuda()
+    got = ops.fused_forward(x, stack)
+    check("SINT", got, ref.fused_mlp_ref(x, stack))
+    hidden = ref.fused_mlp_ref(x, stack[:1])
+    assert 0.2 < float(hidden.mean()) < 0.8      # both sides of the step
+
+
+@pytest.mark.parametrize("m", (1024, 37))
+@pytest.mark.parametrize("k,n", ((400, 64), (64, 32), (32, 16), (16, 2)))
+def test_qmatmul_matches_plain(k, n, m):
+    g = torch.Generator().manual_seed(k * n + m)
+    xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).cuda()
+    wq = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8).cuda()
+    scale = (torch.rand(n, generator=g) * 1e-3).cuda()
+    bias = torch.randn(n, generator=g).cuda()
+    before = qmatmul.launches
+    got = ops.quantized_matmul(xq, wq, scale, bias)
+    assert qmatmul.launches == before + 1
+    check("SINT", got, ref.qmatmul_ref(xq, wq, scale, bias))
+    check("SINT", ops.quantized_matmul(xq, wq, scale),
+          ref.qmatmul_ref(xq, wq, scale))
+
+
+def test_qmatmul_takes_int8_only():
+    x = torch.zeros((4, 8), dtype=torch.int16, device="cuda")
+    with pytest.raises(ValueError, match="int8"):
+        qmatmul.qmatmul(x, x.T.contiguous(), torch.ones(4, device="cuda"))
+
+
+@pytest.mark.parametrize("fused", (None, False))
+def test_engine_launches_its_kernels(fused):
+    model, params = card_model("detector", "SINT")
+    readings = np.tile(fleet_readings(8, 230, seed=0), (1, 4, 1))
+    kw = dict(n_streams=32, fused=fused)
+    engine = StreamEngine(model, params, **kw)
+    plain = StreamEngine(model, params, backend="ref", **kw)
+    engine.warmup()
+    counts = (fused_mlp.launches, qmatmul.launches)
+    got, want = [], []
+    for c in range(readings.shape[0]):
+        got.extend(engine.ingest(readings[c]))
+        want.extend(plain.ingest(readings[c]))
+    steps = engine.stats.steps
+    assert steps == 4
+    if fused is None:
+        assert fused_mlp.launches - counts[0] == steps
+        assert qmatmul.launches == counts[1]
+    else:
+        assert qmatmul.launches - counts[1] == 4 * steps
+        assert fused_mlp.launches == counts[0]
+    assert [v.pred for v in got] == [v.pred for v in want]
+    np.testing.assert_array_equal(engine.last_logits, plain.last_logits)
