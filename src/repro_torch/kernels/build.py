@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so nvcc
 compiles it in seconds into ``_build/lib<name>-<hash>.so``, which ctypes
-loads.  ``<hash>`` covers the source and the flags: an edited source builds
-anew, an unchanged one is loaded as it is.  Sources build in parallel, one
+loads.  ``<hash>`` covers the source, the shared ``csrc/*.cuh`` headers and
+the flags: an edited source builds anew, an unchanged one is loaded as it
+is.  Sources build in parallel, one
 nvcc process each.  ``_build/`` is listed in ``.gitignore``.
 
 Entry points take every pointer and the CUDA stream as ``c_void_p`` and
@@ -23,7 +24,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_mlp", "qmatmul")
+SOURCES = ("fused_mlp", "grouped_mlp", "qmatmul")
 # sm_90a: Hopper with its architecture-specific features.  No fast-math:
 # the kernels' numerics depend on IEEE division and unfused mul/add.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,6 +51,8 @@ def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` lives for its current hash."""
     digest = hashlib.sha256()
     digest.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -10,11 +10,10 @@
 // whole stack (28 KB SINT / 113 KB REAL for the classifier) sits in L2 after
 // the first blocks touch it.
 //
-// Layer kinds (repro.core.layers._quantized_matvec semantics):
-//   REAL        f32 dot (FMA) + bias
-//   INT8 (SINT) quantize -> int8 x int8 products accumulated in int32 ->
-//               f32(acc) * scale, then + bias
-//   INT16/INT32 (INT/DINT) the same integer grid, emulated in f32
+// The layer math, the activations and their numerics (bit for bit against the plain version
+// on SINT: IEEE division, half-even rounding, int32 accumulation, unfused
+// requantize; f32 FMA dots, no TF32) live in mlp_common.cuh, shared with
+// grouped_mlp.cu.
 //
 // What bounds it on the card: bytes.  At M = 1024 the SINT classifier moves
 // ~1.68 MB (input 1.64 MB, weights 28 KB, output 8 KB), ~0.5 us at
@@ -24,29 +23,10 @@
 // inter-layer traffic to device memory, coalesced weight reads shared by
 // ROWS_PER_THREAD rows per thread.  Tensor-core (wgmma/TMA) versions are
 // later work.
-//
-// Numerics follow the reference bit for bit on SINT:
-//   * quantize with __fdiv_rn(h, x_scale) (IEEE division, never the
-//     reciprocal), rintf (round half to even), clip to +-qmax;
-//   * accumulate int8 products in int32;
-//   * requantize as __fadd_rn(__fmul_rn((float)acc, scale), bias) so nvcc
-//     cannot contract the pair into an FMA;
-//   * REAL and emulated dots use f32 FMA (compared within tolerance); no TF32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mlp_common.cuh"
 
 #define MAX_LAYERS 8
-#define THREADS 256
-#define ROWS_PER_THREAD 4
-
-enum Mode { MODE_REAL = 0, MODE_INT8 = 1, MODE_INT16 = 2, MODE_INT32 = 3 };
-
-// Activation ids: repro_torch/kernels/fused_mlp.py::ACT_IDS.
-enum Act {
-  ACT_LINEAR = 0, ACT_RELU = 1, ACT_SIGMOID = 2, ACT_TANH = 3, ACT_ELU = 4,
-  ACT_LEAKY_RELU = 5, ACT_SWISH = 6, ACT_BINARY_STEP = 7
-};
 
 // One layer.  Mirrored field for field by fused_mlp.py::_LayerDesc.
 struct LayerDesc {
@@ -67,54 +47,6 @@ struct MlpDesc {
   LayerDesc layers[MAX_LAYERS];
 };
 
-__device__ __forceinline__ float activate(float y, int act) {
-  switch (act) {
-    case ACT_RELU: return fmaxf(y, 0.0f);
-    case ACT_SIGMOID: return 1.0f / (1.0f + expf(-y));
-    case ACT_TANH: return tanhf(y);
-    case ACT_ELU: return y > 0.0f ? y : expm1f(y);
-    case ACT_LEAKY_RELU: return y > 0.0f ? y : 0.01f * y;
-    case ACT_SWISH: return y * (1.0f / (1.0f + expf(-y)));
-    case ACT_BINARY_STEP: return y >= 0.0f ? 1.0f : 0.0f;
-    default: return y;
-  }
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(int16_t v) { return (float)v; }
-__device__ __forceinline__ float to_float(int32_t v) { return __int2float_rn(v); }
-
-// acc[j] += sum_k a[row j][k] * w[k][n], f32 FMA, for one output column n.
-// The unrolled loop keeps several weight loads in flight at once.
-template <typename T>
-__device__ __forceinline__ void dot_f32(const T* __restrict__ w, int k_dim,
-                                        int n_dim, int n, const float* cur,
-                                        const int* row_off,
-                                        float acc[ROWS_PER_THREAD]) {
-#pragma unroll 8
-  for (int k = 0; k < k_dim; ++k) {
-    const float wv = to_float(w[(size_t)k * n_dim + n]);
-#pragma unroll
-    for (int j = 0; j < ROWS_PER_THREAD; ++j)
-      acc[j] = fmaf(cur[row_off[j] + k], wv, acc[j]);
-  }
-}
-
-// The same over int8 weights and the int32 activation codes the quantize
-// pass stored: int8 x int8 products accumulated in int32, which is exact.
-__device__ __forceinline__ void dot_int8(const int8_t* __restrict__ w,
-                                         int k_dim, int n_dim, int n,
-                                         const int* codes, const int* row_off,
-                                         int acc[ROWS_PER_THREAD]) {
-#pragma unroll 8
-  for (int k = 0; k < k_dim; ++k) {
-    const int wv = w[(size_t)k * n_dim + n];
-#pragma unroll
-    for (int j = 0; j < ROWS_PER_THREAD; ++j)
-      acc[j] += codes[row_off[j] + k] * wv;
-  }
-}
-
 // grid.x = ceil(m / block_m); dynamic shared memory = 2 * block_m * ld * 4 B.
 __global__ void __launch_bounds__(THREADS)
 fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int m,
@@ -134,70 +66,10 @@ fused_mlp_kernel(const float* __restrict__ x, float* __restrict__ out, int m,
   }
   __syncthreads();
 
-  const int groups = (block_m + ROWS_PER_THREAD - 1) / ROWS_PER_THREAD;
   for (int l = 0; l < desc.n_layers; ++l) {
     const LayerDesc L = desc.layers[l];
-    if (L.mode != MODE_REAL) {
-      // In-kernel (re)quantization of the activation tile, in place:
-      // IEEE division by x_scale, half-even rounding, symmetric clip.  SINT
-      // codes are stored once as int32 (in the same shared words) so the
-      // dot reads integers; INT/DINT codes stay f32 (int32's rail is not
-      // f32-representable).
-      for (int i = threadIdx.x; i < block_m * L.k; i += blockDim.x) {
-        const int r = i / L.k, c = i - r * L.k;
-        const float t = fminf(
-            fmaxf(rintf(__fdiv_rn(cur[r * ld + c], L.x_scale)), -L.qmax),
-            L.qmax);
-        if (L.mode == MODE_INT8)
-          reinterpret_cast<int*>(cur)[r * ld + c] = __float2int_rn(t);
-        else
-          cur[r * ld + c] = t;
-      }
-      __syncthreads();
-    }
-    // Work item = (output column n, group of ROWS_PER_THREAD rows): a warp
-    // reads consecutive columns of one weight row (coalesced) and the same
-    // activation (a shared-memory broadcast); each weight is loaded once for
-    // ROWS_PER_THREAD rows.
-    for (int item = threadIdx.x; item < groups * L.n; item += blockDim.x) {
-      const int n = item % L.n;
-      const int r0 = (item / L.n) * ROWS_PER_THREAD;
-      // Rows past the tile's end (block_m not a multiple of
-      // ROWS_PER_THREAD) read the last row and are never stored.
-      int row_off[ROWS_PER_THREAD];
-#pragma unroll
-      for (int j = 0; j < ROWS_PER_THREAD; ++j)
-        row_off[j] = min(r0 + j, block_m - 1) * ld;
-      float y[ROWS_PER_THREAD];
-      if (L.mode == MODE_INT8) {
-        int acc[ROWS_PER_THREAD] = {};
-        dot_int8((const int8_t*)L.w, L.k, L.n, n,
-                 reinterpret_cast<const int*>(cur), row_off, acc);
-#pragma unroll
-        for (int j = 0; j < ROWS_PER_THREAD; ++j)
-          // Requantize as two separately rounded ops: never an FMA.
-          y[j] = __fadd_rn(__fmul_rn(__int2float_rn(acc[j]), L.scale[n]),
-                           L.bias[n]);
-      } else {
-        // f32 FMA dot: REAL and emulated INT/DINT are compared within
-        // tolerance (summation order differs from any library's).
-        float acc[ROWS_PER_THREAD] = {};
-        if (L.mode == MODE_REAL)
-          dot_f32((const float*)L.w, L.k, L.n, n, cur, row_off, acc);
-        else if (L.mode == MODE_INT16)
-          dot_f32((const int16_t*)L.w, L.k, L.n, n, cur, row_off, acc);
-        else
-          dot_f32((const int32_t*)L.w, L.k, L.n, n, cur, row_off, acc);
-#pragma unroll
-        for (int j = 0; j < ROWS_PER_THREAD; ++j)
-          y[j] = L.mode == MODE_REAL
-                     ? __fadd_rn(acc[j], L.bias[n])
-                     : __fadd_rn(__fmul_rn(acc[j], L.scale[n]), L.bias[n]);
-      }
-#pragma unroll
-      for (int j = 0; j < ROWS_PER_THREAD; ++j)
-        if (r0 + j < block_m) nxt[(r0 + j) * ld + n] = activate(y[j], L.act);
-    }
+    dense_tile<false>(cur, nxt, block_m, ld, L.w, L.scale, L.bias,
+                      L.x_scale, L.k, L.n, L.mode, L.qmax, ActFn{L.act});
     __syncthreads();
     float* t = cur;
     cur = nxt;

@@ -1,4 +1,5 @@
-"""Hopper kernel wrapper: a whole Dense stack in ONE launch.
+"""Hopper kernel wrappers: a whole Dense stack, or a whole heterogeneous
+fleet of them, in ONE launch.
 
 Replaces ``src/repro/kernels/fused_mlp.py::fused_mlp`` (the Pallas TPU
 kernel behind ``ops.fused_forward``); the kernel is ``csrc/fused_mlp.cu``,
@@ -13,6 +14,13 @@ fixed-size descriptor array the launch passes by value) and launched many
 times by :func:`fused_mlp`, which runs on CUDA tensors only.  The ``backend``
 contract and the plain version live in ``ops.fused_forward`` and
 ``ref.fused_mlp_ref``.
+
+The grouped kernel (``csrc/grouped_mlp.cu``, replacing the reference's
+``grouped_fused_mlp``) runs a G-group fleet the same way: a fleet is laid out
+once (:class:`GroupedStack`: per-position (G, K, N) arenas, the per-group
+``meta`` table and the descriptor) and launched by
+:func:`grouped_fused_mlp`; ``ops.grouped_apply`` holds its ``backend``
+contract and ``ref.grouped_mlp_ref`` its plain version.
 """
 
 from __future__ import annotations
@@ -35,17 +43,28 @@ ACT_IDS = {"linear": 0, "relu": 1, "sigmoid": 2, "tanh": 3, "elu": 4,
            "leaky_relu": 5, "swish": 6, "binary_step": 7}
 assert set(ACT_IDS) == FUSED_ACTIVATIONS
 
-# Weight dtype -> csrc/fused_mlp.cu's `enum Mode`.
+# Activation ids of csrc/grouped_mlp.cu's `enum GroupedAct`: every
+# activation, softmax included (legal as a group's final layer, where the
+# kernel masks it to the group's true width), numbered in sorted order as
+# the reference's table is.
+GROUPED_ACT_IDS = {name: i for i, name in enumerate(sorted(ACTIVATIONS))}
+
+# Grouped-payload kinds: what the kernel's epilogue writes per group.
+GROUPED_KIND_LOGITS = 0     # classifier: the final activations themselves
+GROUPED_KIND_SCORE = 1      # score head: mean squared error vs the target
+
+# Weight dtype -> csrc/mlp_common.cuh's `enum Mode`.
 MODES = {torch.float32: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3}
 
-MAX_LAYERS = 8          # the descriptor array's fixed length (MAX_LAYERS)
+MAX_LAYERS = 8          # the descriptor arrays' fixed length
 BLOCK_M = 16            # rows per thread block
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_PER_BLOCK = 232_448
 
-# Kernel launches since import (or since a caller last reset it): the proof
-# that a serving path really went through the kernel.
-launches = 0
+# Kernel launches since import (or since a caller last reset them): the
+# proof that a serving path really went through the kernel.
+launches = 0            # fused_mlp
+grouped_launches = 0    # grouped_fused_mlp
 
 
 class FusedLayer(NamedTuple):
@@ -203,4 +222,177 @@ def fused_mlp(x: torch.Tensor, stack: FusedStack) -> torch.Tensor:
     if err:
         raise RuntimeError(f"fused_mlp launch failed: CUDA error {err}")
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Grouped kernel: a whole heterogeneous fleet in ONE launch
+# ---------------------------------------------------------------------------
+
+
+class GroupedLayer(NamedTuple):
+    """One layer *position* of the packed fleet (``ops.build_grouped_plan``'s
+    arenas, the reference's layout).
+
+    ``w``: (G, K, N) weights, one dtype per position (f32/int8/int16/int32).
+    ``bias``: (G, 1, N) f32; ``scale``: (G, 1, N) f32 combined
+    ``x_scale * w_scale`` (zeros on real and skip slots); ``x_scale``: (G, 1)
+    f32 activation scales (ones on real and skip slots).
+    """
+
+    w: torch.Tensor
+    bias: torch.Tensor
+    scale: torch.Tensor
+    x_scale: torch.Tensor
+
+
+def grouped_smem_bytes(k0: int, widths: Sequence[int],
+                       block_m: int = BLOCK_M) -> int:
+    """The grouped kernel's shared-memory bill per block: two f32 activation
+    tiles of ``block_m`` rows by the widest union width (the fleet's input
+    width ``k0`` and every position's output width)."""
+    return smem_bytes([k0, *widths], block_m)
+
+
+class _PositionDesc(ctypes.Structure):
+    """csrc/grouped_mlp.cu's `struct PositionDesc`, field for field."""
+
+    _fields_ = [("w", ctypes.c_void_p), ("scale", ctypes.c_void_p),
+                ("bias", ctypes.c_void_p), ("x_scale", ctypes.c_void_p),
+                ("k", ctypes.c_int), ("n", ctypes.c_int),
+                ("mode", ctypes.c_int), ("qmax", ctypes.c_float)]
+
+
+class _GroupedDesc(ctypes.Structure):
+    """csrc/grouped_mlp.cu's `struct GroupedDesc`."""
+
+    _fields_ = [("n_layers", ctypes.c_int), ("n_pay", ctypes.c_int),
+                ("meta", ctypes.c_void_p),
+                ("pos", _PositionDesc * MAX_LAYERS)]
+
+
+class GroupedStack:
+    """A validated packed fleet plus its launch descriptor.
+
+    ``layers``: one :class:`GroupedLayer` per position; ``meta``: the
+    (G, 2 + 2L) int32 table ``[kind, n_out, act_id x L, skip x L]`` per group
+    (``GROUPED_ACT_IDS``, ``GROUPED_KIND_*``); ``n_pay``: payload lanes per
+    row.  The descriptor holds raw device pointers; this object keeps the
+    tensors they point into alive.
+    """
+
+    def __init__(self, layers: Sequence[GroupedLayer], meta: torch.Tensor,
+                 n_pay: int):
+        if not layers:
+            raise ValueError("grouped_fused_mlp needs at least one position")
+        if len(layers) > MAX_LAYERS:
+            raise ValueError(f"grouped_fused_mlp takes at most {MAX_LAYERS} "
+                             f"positions, got {len(layers)}")
+        device = layers[0].w.device
+        n_groups, k0, _ = layers[0].w.shape
+        n_layers = len(layers)
+        if meta.shape != (n_groups, 2 + 2 * n_layers) \
+                or meta.dtype != torch.int32 or meta.device != device \
+                or not meta.is_contiguous():
+            raise ValueError(
+                f"meta must be a contiguous int32 ({n_groups}, "
+                f"{2 + 2 * n_layers}) tensor on {device}, got {meta.dtype} "
+                f"{tuple(meta.shape)} on {meta.device}")
+        desc = _GroupedDesc(n_layers=n_layers, n_pay=n_pay,
+                            meta=meta.data_ptr())
+        prev = k0
+        for l, layer in enumerate(layers):
+            g, k, n = layer.w.shape
+            if g != n_groups or k != prev:
+                raise ValueError(f"position {l}: arena {tuple(layer.w.shape)}"
+                                 f" does not follow ({n_groups}, {prev}, N)")
+            if layer.w.dtype not in MODES:
+                raise ValueError(f"position {l}: weight dtype "
+                                 f"{layer.w.dtype} has no kernel mode")
+            for name, t, shape in (("bias", layer.bias, (g, 1, n)),
+                                   ("scale", layer.scale, (g, 1, n)),
+                                   ("x_scale", layer.x_scale, (g, 1))):
+                if t.shape != shape or t.dtype != torch.float32:
+                    raise ValueError(f"position {l}: {name} must be f32 "
+                                     f"{shape}, got {t.dtype} "
+                                     f"{tuple(t.shape)}")
+            for t in layer:
+                if t.device != device or not t.is_contiguous():
+                    raise ValueError(f"position {l}: every tensor must be "
+                                     f"contiguous on {device}")
+            quantized = _layer_mode(layer.w.dtype) != "real"
+            desc.pos[l] = _PositionDesc(
+                w=layer.w.data_ptr(), scale=layer.scale.data_ptr(),
+                bias=layer.bias.data_ptr(), x_scale=layer.x_scale.data_ptr(),
+                k=k, n=n, mode=MODES[layer.w.dtype],
+                qmax=float(torch.iinfo(layer.w.dtype).max) if quantized
+                else 0.0)
+            prev = n
+        if not 1 <= n_pay <= prev:
+            raise ValueError(f"n_pay must be in [1, {prev}], got {n_pay}")
+        self.layers = tuple(layers)
+        self.meta = meta
+        self.desc = desc
+        self.device = device
+        self.n_groups = n_groups
+        self.k0 = k0
+        self.n_last = prev
+        self.n_pay = n_pay
+        self.width = max([k0] + [layer.w.shape[2] for layer in layers])
+        self.smem_bytes = grouped_smem_bytes(
+            k0, [layer.w.shape[2] for layer in layers])
+        if self.smem_bytes > SMEM_PER_BLOCK:
+            raise ValueError(
+                f"grouped fleet needs {self.smem_bytes} bytes of shared "
+                f"memory per block (> {SMEM_PER_BLOCK})")
+
+
+@functools.cache
+def _grouped_entry():
+    fn = build.library("grouped_mlp").grouped_mlp_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def grouped_fused_mlp(x: torch.Tensor, stack: GroupedStack,
+                      tgt: torch.Tensor) -> torch.Tensor:
+    """Run a whole packed fleet as ONE kernel launch.
+
+    Args:
+      x: (G, M, K0) contiguous f32 CUDA tensor: every group's window rows at
+        the union input width.  M is any size: the ragged last tile is
+        masked in the kernel.
+      stack: the :class:`GroupedStack` to run.
+      tgt: (G, M, N_last) contiguous f32: the score heads' targets at the
+        last position's union width (zeros for classifiers).
+    Returns (G, M, n_pay) f32 payloads, on the current stream (no
+    synchronisation): a logits group's final activations (zeros past its
+    true width), a score group's masked mean squared error in lane 0.
+    """
+    global grouped_launches
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"grouped_fused_mlp runs on CUDA tensors only, got {x.device}")
+    g, m = stack.n_groups, x.shape[1] if x.ndim == 3 else -1
+    for name, t, width in (("x", x, stack.k0), ("tgt", tgt, stack.n_last)):
+        if t.device != stack.device or t.dtype != torch.float32 \
+                or tuple(t.shape) != (g, m, width) or not t.is_contiguous():
+            raise ValueError(
+                f"grouped_fused_mlp: {name} must be a contiguous f32 "
+                f"({g}, M, {width}) tensor on {stack.device} (M from x), "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    out = torch.empty((g, m, stack.n_pay), dtype=torch.float32,
+                      device=x.device)
+    if m == 0:
+        return out
+    err = _grouped_entry()(
+        x.data_ptr(), tgt.data_ptr(), out.data_ptr(), m, g, BLOCK_M,
+        stack.width, ctypes.addressof(stack.desc),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            f"grouped_fused_mlp launch failed: CUDA error {err}")
+    grouped_launches += 1
     return out

@@ -1,5 +1,6 @@
 """Public wrappers around the port's kernels: the ``repro.kernels.ops``
-counterpart for the fleet detector's two kernels.
+counterpart for the fleet detector's kernels (``qmatmul``, ``fused_mlp`` and
+the grouped ``grouped_fused_mlp``), with the grouped fleet's packing.
 
 The ``backend`` contract:
 
@@ -15,13 +16,18 @@ back quietly.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core.layers import Dense, Input
+from repro_torch.core.layers import ACTIVATIONS, Dense, Input, int_matmul
 from repro_torch.kernels import fused_mlp, qmatmul, ref
-from repro_torch.kernels.fused_mlp import FusedLayer, FusedStack
+from repro_torch.kernels.fused_mlp import (GROUPED_ACT_IDS,
+                                           GROUPED_KIND_LOGITS,
+                                           GROUPED_KIND_SCORE, FusedLayer,
+                                           FusedStack, GroupedLayer,
+                                           GroupedStack)
 
 LayerStack = Sequence[Tuple[Dict[str, torch.Tensor], str]]
 BACKENDS = ("auto", "kernel", "ref")
@@ -99,6 +105,36 @@ def _weight(p: Dict[str, torch.Tensor]) -> torch.Tensor:
     return p["qw"] if "qw" in p else p["w"]
 
 
+def _layer_reason(i: int, p: Dict[str, torch.Tensor], act: str, *,
+                  final: bool, allow_final_softmax: bool) -> Optional[str]:
+    """Per-layer fusability check shared by the single-stack and grouped
+    paths: the grouped kernel masks a FINAL-layer softmax to the group's
+    true width, so only it sets ``allow_final_softmax``."""
+    if act not in fused_mlp.FUSED_ACTIVATIONS and not (
+            allow_final_softmax and final and act == "softmax"):
+        return (f"layer {i} activation {act!r} is not element-wise "
+                f"(fusable: {sorted(fused_mlp.FUSED_ACTIVATIONS)})")
+    if "qw" in p:
+        if p["qw"].ndim != 2 or "w_scale" not in p or "x_scale" not in p:
+            return (f"layer {i} quantized params are malformed "
+                    "(need 2-D qw with w_scale and x_scale)")
+    elif "w" not in p or p["w"].ndim != 2:
+        return f"layer {i} has no 2-D dense weight"
+    if _weight(p).dtype not in fused_mlp.MODES:
+        return f"layer {i} weight dtype {_weight(p).dtype} has no kernel mode"
+    return None
+
+
+def _chain_reason(stack: LayerStack) -> Optional[str]:
+    """Why consecutive layers of a stack do not chain (K_i != N_{i-1})."""
+    for i in range(1, len(stack)):
+        k, n_prev = _weight(stack[i][0]).shape[0], \
+            _weight(stack[i - 1][0]).shape[1]
+        if k != n_prev:
+            return f"layer {i} takes {k} inputs but layer {i - 1} gives {n_prev}"
+    return None
+
+
 def fuse_reason(stack: LayerStack) -> Optional[str]:
     """None when a layer stack can run as one fused launch, else why not.
 
@@ -113,24 +149,16 @@ def fuse_reason(stack: LayerStack) -> Optional[str]:
     if len(stack) > fused_mlp.MAX_LAYERS:
         return (f"{len(stack)} layers exceed the kernel's descriptor array "
                 f"of {fused_mlp.MAX_LAYERS}")
-    widths = []
     for i, (p, act) in enumerate(stack):
-        if act not in fused_mlp.FUSED_ACTIVATIONS:
-            return (f"layer {i} activation {act!r} is not element-wise "
-                    f"(fusable: {sorted(fused_mlp.FUSED_ACTIVATIONS)})")
-        if "qw" in p:
-            if p["qw"].ndim != 2 or "w_scale" not in p or "x_scale" not in p:
-                return (f"layer {i} quantized params are malformed "
-                        "(need 2-D qw with w_scale and x_scale)")
-        elif "w" not in p or p["w"].ndim != 2:
-            return f"layer {i} has no 2-D dense weight"
-        w = _weight(p)
-        if w.dtype not in fused_mlp.MODES:
-            return f"layer {i} weight dtype {w.dtype} has no kernel mode"
-        k, n = w.shape
-        if widths and k != widths[-1]:
-            return f"layer {i} takes {k} inputs but layer {i - 1} gives {widths[-1]}"
-        widths += [k, n] if not widths else [n]
+        reason = _layer_reason(i, p, act, final=i == len(stack) - 1,
+                               allow_final_softmax=False)
+        if reason is not None:
+            return reason
+    reason = _chain_reason(stack)
+    if reason is not None:
+        return reason
+    widths = [_weight(stack[0][0]).shape[0]] + [_weight(p).shape[1]
+                                                for p, _ in stack]
     smem = fused_mlp.smem_bytes(widths)
     if smem > fused_mlp.SMEM_PER_BLOCK:
         return (f"the fused kernel needs {smem} bytes of shared memory per "
@@ -197,3 +225,320 @@ def fused_forward(
     if prepared is None:
         prepared = prepare_fused(source)
     return fused_mlp.fused_mlp(x.to(torch.float32).contiguous(), prepared)
+
+
+# ---------------------------------------------------------------------------
+# Grouped fleet: a whole heterogeneous fleet in ONE launch
+# ---------------------------------------------------------------------------
+
+
+def _grouped_widths(stacks: Sequence[LayerStack],
+                    k0: Optional[int] = None) -> Tuple[int, list]:
+    """Tight-union arena geometry: per position l, K is the previous union
+    width and N the widest active layer, widened to every *finished* group's
+    true output so the skip pass-through never cuts a payload."""
+    n_layers = max(len(s) for s in stacks)
+    k0 = max(int(_weight(s[0][0]).shape[0]) for s in stacks) if k0 is None \
+        else k0
+    widths, prev = [], k0
+    for l in range(n_layers):
+        n = max(int(_weight(s[l][0]).shape[1]) if len(s) > l
+                else int(_weight(s[-1][0]).shape[1]) for s in stacks)
+        widths.append((prev, n))
+        prev = n
+    return k0, widths
+
+
+def grouped_fuse_reason(stacks: Sequence[LayerStack], *,
+                        names: Optional[Sequence[str]] = None,
+                        k0: Optional[int] = None) -> Optional[str]:
+    """None when a fleet of layer stacks can pack into ONE grouped launch,
+    else why not.
+
+    Beyond the per-stack :func:`fuse_reason` checks (relaxed to allow a
+    FINAL-layer softmax, which the grouped kernel masks), the packed arena
+    needs one weight dtype per layer position (one kernel mode), at most
+    ``fused_mlp.MAX_LAYERS`` positions, and the kernel's shared-memory bill
+    (two f32 tiles of ``fused_mlp.BLOCK_M`` rows by the widest union width)
+    within Hopper's 232,448 bytes per block.  The shared-memory message
+    carries the per-group slab accounting, so a ``megakernel=True`` failure
+    names the group that widens the union.
+    """
+    if not stacks:
+        return "no layer stacks"
+    names = list(names) if names is not None else [
+        f"group{g}" for g in range(len(stacks))]
+    for g, stack in enumerate(stacks):
+        if not stack:
+            return f"{names[g]}: empty layer stack"
+        for i, (p, act) in enumerate(stack):
+            reason = _layer_reason(i, p, act, final=i == len(stack) - 1,
+                                   allow_final_softmax=True)
+            if reason is not None:
+                return f"{names[g]}: {reason}"
+        reason = _chain_reason(stack)
+        if reason is not None:
+            return f"{names[g]}: {reason}"
+    widest = max(int(_weight(s[0][0]).shape[0]) for s in stacks)
+    if k0 is not None and k0 < widest:
+        return f"union input width {k0} is narrower than a group's {widest}"
+    n_layers = max(len(s) for s in stacks)
+    if n_layers > fused_mlp.MAX_LAYERS:
+        return (f"{n_layers} layer positions exceed the kernel's descriptor "
+                f"array of {fused_mlp.MAX_LAYERS}")
+    for l in range(n_layers):
+        dtypes = {_weight(s[l][0]).dtype for s in stacks if len(s) > l}
+        if len(dtypes) > 1:
+            return (f"layer position {l} mixes weight dtypes "
+                    f"{sorted(str(d).removeprefix('torch.') for d in dtypes)} "
+                    "across groups; "
+                    "the packed arena needs one kernel mode per position")
+    k0u, widths = _grouped_widths(stacks, k0)
+    smem = fused_mlp.grouped_smem_bytes(k0u, [n for _, n in widths])
+    if smem > fused_mlp.SMEM_PER_BLOCK:
+        slabs = [(names[g], sum(_weight(p).numel() * _weight(p).element_size()
+                                for p, _ in stack))
+                 for g, stack in enumerate(stacks)]
+        widest = max(slabs, key=lambda s: s[1])[0]
+        detail = ", ".join(f"{n}={b}B" for n, b in slabs)
+        return (f"the grouped kernel needs {smem} bytes of shared memory per "
+                f"block (two f32 activation tiles of {fused_mlp.BLOCK_M} rows "
+                f"x {max([k0u] + [n for _, n in widths])} union lanes), over "
+                f"Hopper's {fused_mlp.SMEM_PER_BLOCK} bytes per block "
+                f"(per-group slabs: {detail}; widest slab {widest!r} drives "
+                "the union arena) — serve this fleet per group")
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """Static description of a packed heterogeneous fleet.
+
+    Every field is a plain int/str tuple, so the plan is hashable and two
+    fleets with identical geometry (shapes, dtypes, activations, head kinds)
+    give equal plans; serving keys its cached mega steps on it.  The numbers
+    (weight arenas, scales, the meta table, the per-group true stacks) live
+    in the companion ``arrays`` from :func:`build_grouped_plan`.
+    """
+
+    n_groups: int
+    k0: int                                   # union input width (tight)
+    n_layers: int
+    widths: Tuple[Tuple[int, int], ...]       # union (K, N) per position
+    modes: Tuple[str, ...]                    # 'real' | 'int8' | 'emu'
+    qmaxes: Tuple[int, ...]
+    pos_acts: Tuple[Tuple[str, ...], ...]     # distinct acts per position
+    acts: Tuple[Tuple[str, ...], ...]         # per group: its own stack acts
+    skips: Tuple[Tuple[int, ...], ...]        # per group x position
+    kinds: Tuple[int, ...]                    # GROUPED_KIND_* per group
+    n_outs: Tuple[int, ...]                   # true final width per group
+    true_k0s: Tuple[int, ...]                 # true input width per group
+    n_out: int                                # union true final width
+    payload_width: int                        # max(n_out | 1) over groups
+
+
+def build_grouped_plan(
+    stacks: Sequence[LayerStack],
+    kinds: Sequence[int],
+    *,
+    k0: Optional[int] = None,
+) -> Tuple[GroupedPlan, Dict]:
+    """Pack per-group layer stacks into the grouped kernel's arena layout.
+
+    Returns ``(plan, arrays)``: the hashable static plan and a dict of
+    tensors on the stacks' device — per-position ``w``/``scale``/``bias``/
+    ``x_scale`` arenas, the (G, 2+2L) int32 ``meta`` table, and the
+    per-group true ``stacks`` params (what the plain version runs).  Pad
+    slots are zeros (they meet zero weight rows); skip slots keep
+    ``x_scale`` at 1 so quantizing them never divides by zero.
+
+    ``k0`` widens the union input beyond the widest true input (serving
+    passes the window width, so a head whose ``prepare`` drops trailing
+    lanes — the forecast head — is handled by zero weight rows).
+    """
+    reason = grouped_fuse_reason(stacks, k0=k0)
+    if reason is not None:
+        raise ValueError(f"fleet cannot pack into one launch: {reason}")
+    n_groups = len(stacks)
+    n_layers = max(len(s) for s in stacks)
+    device = _weight(stacks[0][0][0]).device
+    k0u, widths = _grouped_widths(stacks, k0)
+    true_k0s = tuple(int(_weight(s[0][0]).shape[0]) for s in stacks)
+    n_outs = tuple(int(_weight(s[-1][0]).shape[1]) for s in stacks)
+    kinds = tuple(int(k) for k in kinds)
+    if len(kinds) != n_groups or not set(kinds) <= {GROUPED_KIND_LOGITS,
+                                                    GROUPED_KIND_SCORE}:
+        raise ValueError(f"need one GROUPED_KIND_* per group ({n_groups}), "
+                         f"got {kinds}")
+    payload_width = max(n if kind == GROUPED_KIND_LOGITS else 1
+                        for n, kind in zip(n_outs, kinds))
+
+    modes, qmaxes, pos_acts = [], [], []
+    arenas: Dict[str, List[torch.Tensor]] = {
+        "w": [], "scale": [], "bias": [], "x_scale": []}
+    act_ids = torch.zeros((n_groups, n_layers), dtype=torch.int32)
+    skips = torch.zeros((n_groups, n_layers), dtype=torch.int32)
+    for l, (k, n) in enumerate(widths):
+        dtype = next(_weight(s[l][0]).dtype for s in stacks if len(s) > l)
+        mode = fused_mlp._layer_mode(dtype)
+        modes.append(mode)
+        qmaxes.append(int(torch.iinfo(dtype).max) if mode != "real" else 0)
+        w = torch.zeros((n_groups, k, n), dtype=dtype)
+        sc = torch.zeros((n_groups, 1, n), dtype=torch.float32)
+        bi = torch.zeros((n_groups, 1, n), dtype=torch.float32)
+        xs = torch.ones((n_groups, 1), dtype=torch.float32)
+        acts_here = set()
+        for g, stack in enumerate(stacks):
+            if len(stack) <= l:
+                skips[g, l] = 1
+                continue
+            p, act = stack[l]
+            wg = _weight(p).cpu()
+            kg, ng = wg.shape
+            w[g, :kg, :ng] = wg
+            if "qw" in p:
+                sc[g, 0, :ng] = (p["x_scale"] * p["w_scale"]).cpu() \
+                    .to(torch.float32).broadcast_to((ng,))
+                xs[g, 0] = p["x_scale"].cpu()
+            if p.get("b") is not None:
+                bi[g, 0, :ng] = p["b"].cpu().to(torch.float32) \
+                    .broadcast_to((ng,))
+            act_ids[g, l] = GROUPED_ACT_IDS[act]
+            acts_here.add(act)
+        pos_acts.append(tuple(sorted(acts_here)))
+        for name, t in (("w", w), ("scale", sc), ("bias", bi),
+                        ("x_scale", xs)):
+            arenas[name].append(t.to(device))
+
+    meta = torch.cat([torch.tensor(kinds, dtype=torch.int32)[:, None],
+                      torch.tensor(n_outs, dtype=torch.int32)[:, None],
+                      act_ids, skips], dim=1)
+    arrays = dict(arenas, meta=meta.to(device),
+                  stacks=[[p for p, _ in stack] for stack in stacks])
+    plan = GroupedPlan(
+        n_groups=n_groups, k0=k0u, n_layers=n_layers,
+        widths=tuple(widths), modes=tuple(modes), qmaxes=tuple(qmaxes),
+        pos_acts=tuple(pos_acts),
+        acts=tuple(tuple(act for _, act in stack) for stack in stacks),
+        skips=tuple(tuple(int(v) for v in row) for row in skips.tolist()),
+        kinds=kinds, n_outs=n_outs, true_k0s=true_k0s,
+        n_out=max(n_outs), payload_width=payload_width)
+    return plan, arrays
+
+
+def prepare_grouped(plan: GroupedPlan, arrays: Dict) -> GroupedStack:
+    """Lay a packed fleet out for the grouped kernel: its arenas, meta table
+    and launch descriptor.  A caller that launches repeatedly (the serving
+    engine's mega pack) prepares once and keeps the result, which owns the
+    tensors the descriptor points into."""
+    return GroupedStack(
+        [GroupedLayer(w=arrays["w"][l], bias=arrays["bias"][l],
+                      scale=arrays["scale"][l], x_scale=arrays["x_scale"][l])
+         for l in range(plan.n_layers)],
+        arrays["meta"], plan.payload_width)
+
+
+def _grouped_acts_batched(y: torch.Tensor, plan: GroupedPlan, l: int,
+                          meta: torch.Tensor) -> torch.Tensor:
+    """Per-group activation select on a batched (G, M, N) tile, as the
+    kernel: over the position's distinct activations, softmax masked to
+    each group's true output width."""
+    act_id = meta[:, 2 + l][:, None, None]
+    out = y
+    for name in plan.pos_acts[l]:
+        if name == "softmax":
+            n_outs = meta[:, 1][:, None, None]
+            lanes = torch.arange(y.shape[-1], device=y.device)[None, None, :]
+            z = torch.where(lanes < n_outs, y, -torch.inf)
+            ez = torch.exp(z - z.amax(dim=-1, keepdim=True))
+            a = ez / ez.sum(dim=-1, keepdim=True)
+        else:
+            a = ACTIVATIONS[name](y)
+        if len(plan.pos_acts[l]) == 1:
+            out = a
+        else:
+            out = torch.where(act_id == GROUPED_ACT_IDS[name], a, out)
+    return out
+
+
+def _fit_cols(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` zero-padded or cut to ``n`` columns on its last axis."""
+    if x.shape[-1] < n:
+        return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    return x[..., :n]
+
+
+def _grouped_forward_batched(x: torch.Tensor, plan: GroupedPlan,
+                             arrays: Dict) -> torch.Tensor:
+    """Tight-union batched forward for uniformly-int8 fleets: one batched
+    exact integer product per layer position instead of one per group per
+    layer.  Integer accumulation is exact, so this bit-matches the
+    per-group path."""
+    meta = arrays["meta"]
+    h = x
+    for l in range(plan.n_layers):
+        xs = arrays["x_scale"][l][:, :, None]
+        hq = torch.clamp(torch.round(h / xs), -plan.qmaxes[l], plan.qmaxes[l])
+        acc = int_matmul(hq, arrays["w"][l]).to(torch.float32)
+        y = acc * arrays["scale"][l] + arrays["bias"][l]
+        y = _grouped_acts_batched(y, plan, l, meta)
+        if any(row[l] for row in plan.skips):
+            skip = meta[:, 2 + plan.n_layers + l][:, None, None]
+            y = torch.where(skip == 1, _fit_cols(h, y.shape[-1]), y)
+        h = y
+    return h
+
+
+def grouped_apply(
+    x: torch.Tensor,
+    plan: GroupedPlan,
+    arrays: Dict,
+    tgt: torch.Tensor,
+    *,
+    backend: str = "auto",
+    prepared: Optional[GroupedStack] = None,
+) -> torch.Tensor:
+    """One forward + head epilogue for a packed heterogeneous fleet.
+
+    Args:
+      x: (G, M, plan.k0) f32: every group's window rows at the union input
+        width.
+      plan/arrays: from :func:`build_grouped_plan`; ``prepared`` is their
+        :func:`prepare_grouped` layout, made here when not given.
+      tgt: (G, M, plan.n_out) f32 epilogue targets: the window itself for
+        reconstruction heads, its newest reading for forecast heads, the
+        center row for margin heads, zeros for classifiers.
+
+    Returns (G, M, plan.payload_width) f32 payloads: logits for
+    ``GROUPED_KIND_LOGITS`` groups, the score in lane 0 for
+    ``GROUPED_KIND_SCORE`` groups.
+
+    Runs where ``x`` lies (see the module docstring for ``backend``): the
+    ``grouped_fused_mlp`` kernel on the card, on the tight arenas, nothing
+    padded; the plain version otherwise — per-group true-dimension math
+    (``ref.grouped_mlp_ref``), or for uniformly-int8 fleets one batched
+    integer product per position, which is bit-exact to it.
+    """
+    if not _use_kernel(x, backend, "grouped_fused_mlp"):
+        if all(mode == "int8" for mode in plan.modes):
+            h = _grouped_forward_batched(x, plan, arrays)
+            pays = []
+            for g in range(plan.n_groups):
+                n = plan.n_outs[g]
+                if plan.kinds[g] == GROUPED_KIND_LOGITS:
+                    pay = h[g][:, :n]
+                else:
+                    pay = torch.mean(torch.square(h[g][:, :n] - tgt[g][:, :n]),
+                                     dim=-1)[:, None]
+                pays.append(_fit_cols(pay, plan.payload_width))
+            return torch.stack(pays)
+        return ref.grouped_mlp_ref(
+            x, [list(zip(arrays["stacks"][g], plan.acts[g]))
+                for g in range(plan.n_groups)],
+            kinds=plan.kinds, true_k0s=plan.true_k0s, n_outs=plan.n_outs,
+            tgt=tgt, n_pay=plan.payload_width)
+    if prepared is None:
+        prepared = prepare_grouped(plan, arrays)
+    return fused_mlp.grouped_fused_mlp(
+        x.to(torch.float32).contiguous(), prepared,
+        tgt.to(torch.float32).contiguous())

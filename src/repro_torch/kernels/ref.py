@@ -56,3 +56,37 @@ def fused_mlp_ref(
     for p, act in stack:
         x = dense_layer_ref(x, p, act)
     return x
+
+
+def grouped_mlp_ref(
+    x: torch.Tensor,
+    stacks: Sequence[Sequence[Tuple[Dict[str, torch.Tensor], str]]],
+    *,
+    kinds: Sequence[int],
+    true_k0s: Sequence[int],
+    n_outs: Sequence[int],
+    tgt: torch.Tensor,
+    n_pay: int,
+) -> torch.Tensor:
+    """The grouped kernel's plain version: per-group true-dimension math.
+
+    Each group's rows ``x[g]`` are cut to the group's true input width and
+    run through its OWN stack with :func:`dense_layer_ref` (a softmax runs
+    at the true width), then reduced by the head epilogue: ``kind`` 0
+    (logits) passes the final activations through, ``kind`` 1 (score)
+    writes ``mean((h - tgt)^2)`` over the group's true output lanes into
+    payload lane 0.  Returns (G, M, n_pay) f32, zero-padded lanes.  The op
+    sequence is the per-group serving path's, so it matches it bit for bit.
+    """
+    pays = []
+    for g, stack in enumerate(stacks):
+        h = x[g][:, :true_k0s[g]]
+        for p, act in stack:
+            h = dense_layer_ref(h, p, act)
+        if kinds[g] == 0:
+            pay = h
+        else:
+            pay = torch.mean(torch.square(h - tgt[g][:, :n_outs[g]]),
+                             dim=-1)[:, None]
+        pays.append(torch.nn.functional.pad(pay, (0, n_pay - pay.shape[1])))
+    return torch.stack(pays)

@@ -1,25 +1,44 @@
-"""The fleet-serving core behind ``StreamEngine``: the single-device path of
-``repro.serving.core`` in PyTorch.
+"""The fleet-serving core behind ``StreamEngine`` and
+``GroupedStreamEngine``: the single-device path of ``repro.serving.core`` in
+PyTorch.
 
 **The unit model.**  A serving core drives a list of *units*: contiguous
 stream-axis slices, each with its own model, detector head, window geometry,
 fused/per-layer forward and optional drift adaptation.  ``StreamEngine`` is
-the one-unit case (its unit is anonymous, so verdicts keep ``group=None``).
-Per verdict cadence the core runs one step for each ready unit: the ring
-scatter of the pending readings, the oldest-first window unroll, the head's
-``prepare``, the forward and the head's device epilogue.
+the one-unit case (its unit is anonymous, so verdicts keep ``group=None``);
+``GroupedStreamEngine`` the N-unit case with named groups.  Per verdict
+cadence the core runs one step for each ready unit: the ring scatter of the
+pending readings, the oldest-first window unroll, the head's ``prepare``,
+the forward and the head's device epilogue.
 
 **The ring arena** of each unit is one tensor preallocated on the device and
 updated in place, the counterpart of the reference's donated
 ``donate_argnums=(0, 1, 2)`` step (the ring and the adaptation state are
-never reallocated).  Readings accumulate on the host between cadences and
-are uploaded once per step, so a stride-10 fleet touches the device once per
-verdict cadence.
+never reallocated).  Units that share ``(n_streams, window)`` keep their
+rings as views of one ``(G, S, W, F)`` arena, so the megakernel step writes
+and unrolls them in one batched op.  Readings accumulate on the host between
+cadences and are uploaded once per step, so a stride-10 fleet touches the
+device once per verdict cadence.
 
 **The forward** is ``ops.fused_forward``: the whole Dense stack as ONE
 ``fused_mlp`` kernel launch on the card, SINT requantizing in-kernel.  With
 ``fused=False`` (or a stack that does not fuse) it is the per-layer loop
 :func:`_dense_batched`, where each SINT layer is one ``qmatmul`` launch.
+
+**Megakernel (one launch per multi-group step).**  When every unit's stack
+packs (``ops.grouped_fuse_reason``: all-Dense, one weight dtype per layer
+position, the grouped kernel's shared-memory bill within Hopper's) and every
+head exposes an in-kernel epilogue (``DetectorHead.kernel_epilogue``), a
+step whose co-firing units share ``(n_streams, window)`` and block length is
+ONE ``grouped_fused_mlp`` launch: the units' arena is scattered and unrolled
+batched over the group axis, and ``ops.grouped_apply`` runs the whole fleet
+— per-group quantization, activations (a final softmax masked to each
+group's true class count) and head epilogues included.  Adaptive units
+update their calibration state from the payload inside the step.  The
+packed arenas are built once per ready subset (:class:`_MegaPack`).
+``megakernel=None`` packs when the fleet can, ``False`` pins the per-group
+path, ``True`` raises with the packing reason when the fleet cannot.  Ready
+subsets whose geometry cannot stack serve per group for that boundary.
 
 **Async double-buffering (``async_depth=1``).**  ``ingest()`` at a ready
 boundary first *harvests* the previous step (its outputs were copied to the
@@ -32,8 +51,8 @@ in-flight step.  ``latency_s`` is dispatch→harvest time; ``stats.steps``
 counts at dispatch, ``windows``/``deadline_misses``/``latencies_s`` at
 harvest, and ``wall_s`` is host time inside ``ingest()``/``flush()`` only.
 
-Fleet meshes (stream and model sharding) and the grouped megakernel are not
-ported yet (ROADMAP items 9 and 12).
+Fleet meshes (stream and model sharding) are not ported yet (ROADMAP item
+12).
 """
 
 from __future__ import annotations
@@ -47,14 +66,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs import msf_detector as spec
-from repro_torch.core.layers import ACTIVATIONS
+from repro_torch.core.layers import ACTIVATIONS, Dense, Input
 from repro_torch.core.model import Model, ParamTree
 from repro_torch.device import Device, resolve_device, to_device
 from repro_torch.kernels import ops
-from repro_torch.sim.heads import ClassifierHead, DetectorHead, ScoreHead
+from repro_torch.sim.heads import (ClassifierHead, DetectorHead, ForecastHead,
+                                   ScoreHead)
 
-NOT_PORTED_MESH = ("fleet meshes and the grouped megakernel are not ported "
-                   "to PyTorch yet (ROADMAP items 9 and 12)")
+NOT_PORTED_MESH = ("fleet meshes (stream and model sharding) are not ported "
+                   "to PyTorch yet (ROADMAP item 12)")
 
 
 @dataclasses.dataclass
@@ -146,9 +166,12 @@ class LatencyReservoir:
 class StreamStats:
     """Aggregate serve accounting.
 
-    ``dispatches`` counts forward launches: 1 per step for a fused unit, one
-    per Dense layer for a per-layer unit (a ``qmatmul`` launch for each SINT
-    layer, a plain matmul for the others).  Under ``async_depth=1``
+    ``dispatches`` counts forward launches: a megakernel step is 1 however
+    many groups co-fired (one ``grouped_fused_mlp`` launch); on the
+    per-group path each ready unit adds 1 when fused and one per Dense layer
+    when per-layer (a ``qmatmul`` launch for each SINT layer, a plain matmul
+    for the others).  ``dispatches == steps`` is the one-launch-per-step
+    guarantee of a packed fleet.  Under ``async_depth=1``
     ``steps`` counts at dispatch and ``windows``/``deadline_misses``/
     ``latencies_s`` at harvest.
     """
@@ -286,7 +309,8 @@ class _UnitState:
 
     __slots__ = ("name", "head", "window", "offset", "n_streams", "body",
                  "pos", "consumed", "use_fused", "windows", "adapt",
-                 "live_threshold", "fires", "dispatch_cost")
+                 "live_threshold", "fires", "dispatch_cost", "stack",
+                 "kernel_epi", "fused_knob", "all_dense")
 
     def __init__(self, name, head, window, offset, n_streams):
         self.name = name
@@ -303,14 +327,19 @@ class _UnitState:
 class _InFlight:
     """One dispatched verdict step whose outputs are on their way to the
     host: the device-to-host copies are queued right after the step, and
-    ``done`` marks their completion on the stream."""
+    ``done`` marks their completion on the stream.  ``unpack`` turns the
+    host copies into one array per ready unit (the identity for per-group
+    steps; a mega step slices each unit's payload out of one tensor)."""
 
-    __slots__ = ("key", "outs", "cycle", "t0", "done")
+    __slots__ = ("key", "outs", "cycle", "t0", "done", "unpack")
 
-    def __init__(self, key, outs: Sequence[torch.Tensor], cycle, t0):
+    def __init__(self, key, outs: Sequence[torch.Tensor], cycle, t0,
+                 unpack: Callable[[List[np.ndarray]], List[np.ndarray]]
+                 = lambda hosts: hosts):
         self.key = key                # ((unit index, block length), ...)
         self.cycle = cycle            # boundary cycle the windows completed at
         self.t0 = t0                  # dispatch wall-clock (latency origin)
+        self.unpack = unpack
         self.outs = [o.to("cpu", non_blocking=True) for o in outs]
         self.done = None
         if any(o.is_cuda for o in outs):
@@ -320,7 +349,40 @@ class _InFlight:
     def host_outputs(self) -> List[np.ndarray]:
         if self.done is not None:
             self.done.synchronize()
-        return [o.numpy() for o in self.outs]
+        return self.unpack([o.numpy() for o in self.outs])
+
+
+class _MegaPack:
+    """One ready subset's packed megakernel operands and static geometry.
+
+    Owns the arenas (``arrays``) and the kernel's launch layout (``kernel``,
+    whose descriptor points into them; None off the card) for as long as
+    the engine serves the subset.  ``tgt`` is the subset's epilogue-target
+    buffer, (G, S, plan.n_out) on the device: margin centers are written
+    once, classifier rows stay zero, and each step copies the window (or its
+    newest reading) into the reconstruction (forecast) rows.  ``sig`` is the
+    step-cache key: the hashable plan plus the serving geometry, epilogue
+    selectors and adapt policy the step closes over.
+    """
+
+    __slots__ = ("plan", "arrays", "kernel", "tgt", "tgt_sels", "widths",
+                 "heads", "adapts", "sig")
+
+    def __init__(self, plan, arrays, kernel, tgt, tgt_sels, widths, heads,
+                 adapts, sig):
+        self.plan = plan
+        self.arrays = arrays
+        self.kernel = kernel
+        self.tgt = tgt
+        self.tgt_sels = tgt_sels      # per slot: none|window|tail|center
+        self.widths = widths          # true payload width per slot
+        self.heads = heads
+        self.adapts = adapts
+        self.sig = sig
+
+    def unpack(self, hosts: List[np.ndarray]) -> List[np.ndarray]:
+        (pay,) = hosts
+        return [pay[k, :, :w] for k, w in enumerate(self.widths)]
 
 
 def _ring_write(ring: torch.Tensor, vals: torch.Tensor, start: int) -> None:
@@ -352,6 +414,7 @@ class ServingCore:
                  backend: str = "auto",
                  mesh: Any = None,
                  async_depth: int = 0,
+                 megakernel: Optional[bool] = None,
                  device: Device = "cuda"):
         if mesh is not None:
             raise NotImplementedError(NOT_PORTED_MESH)
@@ -416,6 +479,11 @@ class ServingCore:
             use_fused = fusable if u.fused is None else u.fused
             st = _UnitState(u.name, head, window, offset, u.n_streams)
             st.use_fused = use_fused
+            st.stack = stack
+            st.kernel_epi = head.kernel_epilogue()
+            st.fused_knob = u.fused
+            st.all_dense = all(isinstance(n.layer, (Input, Dense))
+                               for n in u.model.graph.nodes)
             st.dispatch_cost = 1 if use_fused else len(stack)
             st.adapt = _resolve_adapt(u.adapt, head, what=u.what)
             st.live_threshold = (head.threshold
@@ -423,14 +491,39 @@ class ServingCore:
             st.body = self._make_body(stack, head, use_fused, window,
                                       st.adapt)
             self._units.append(st)
-            self._rings.append(torch.zeros(
-                (u.n_streams, window, n_features), dtype=torch.float32,
-                device=self.device))
             calib, counts = self._calib_state(st)
             self._calibs.append(calib)
             self._counts.append(counts)
             offset += u.n_streams
         self.max_window = max(st.window for st in self._units)
+
+        # Ring arenas: units of equal (n_streams, window) keep their rings as
+        # views of one (G, S, W, F) tensor, keyed by the member unit indices.
+        # Such units always fire together (readiness depends on the window
+        # only), so a stackable ready subset is exactly one arena.
+        members: Dict[Tuple[int, int], List[int]] = {}
+        for gi, st in enumerate(self._units):
+            members.setdefault((st.n_streams, st.window), []).append(gi)
+        self._arenas: Dict[Tuple[int, ...], torch.Tensor] = {}
+        self._rings = [None] * len(self._units)
+        for (n_streams, window), gis in members.items():
+            arena = torch.zeros((len(gis), n_streams, window, n_features),
+                                dtype=torch.float32, device=self.device)
+            self._arenas[tuple(gis)] = arena
+            for k, gi in enumerate(gis):
+                self._rings[gi] = arena[k]
+
+        # -- megakernel (one launch per multi-group step) -----------------
+        # Packs are built once per ready subset; steps are cached closures
+        # keyed by (pack.sig, block length), the block shape.
+        self._mega_packs: Dict[Tuple[int, ...], _MegaPack] = {}
+        self._mega_steps: Dict[Tuple, Callable] = {}
+        self._mega_reason = self._compute_mega_reason()
+        if megakernel and self._mega_reason is not None:
+            raise ValueError(
+                "megakernel=True but the fleet cannot pack into one launch: "
+                f"{self._mega_reason}")
+        self._mega = self._mega_reason is None and megakernel is not False
 
         self._count = 0
         self._pending: List[np.ndarray] = []
@@ -438,6 +531,13 @@ class ServingCore:
         self.last_outputs: Dict[Optional[str], np.ndarray] = {}
         self.stats = StreamStats(steps=0, cycles=0, windows=0,
                                  deadline_misses=0, wall_s=0.0)
+
+    @property
+    def mega_reason(self) -> Optional[str]:
+        """Why this fleet cannot pack into the one-launch megakernel step
+        (None when it can; ``megakernel=False`` may still pin the per-group
+        path)."""
+        return self._mega_reason
 
     # -- construction helpers ----------------------------------------------
 
@@ -494,6 +594,187 @@ class ServingCore:
 
         return body
 
+    # -- megakernel: the whole ready fleet in ONE launch ------------------
+
+    def _compute_mega_reason(self) -> Optional[str]:
+        """None when multi-unit ready steps can run as one grouped kernel
+        launch, else why the engine serves per group: engine-level
+        prerequisites first (unit count, step flavor, head epilogue hooks),
+        then the kernel's packing contract (``ops.grouped_fuse_reason``)."""
+        if len(self._units) < 2:
+            return ("fleet has a single unit; its step is already one "
+                    "launch")
+        for st in self._units:
+            what = f"group {st.name!r}: " if st.name else ""
+            if st.fused_knob is False:
+                return f"{what}fused=False pins the per-layer path"
+            if not st.all_dense:
+                return f"{what}the model graph has non-Dense nodes"
+            epi = st.kernel_epi
+            if epi is None:
+                return (f"{what}head {st.head.name!r} has no in-kernel "
+                        "epilogue (kernel_epilogue() returned None)")
+            if epi[0] not in ("logits", "mse") or \
+                    epi[1] not in ("none", "window", "tail", "center"):
+                return f"{what}unknown kernel epilogue spec {epi!r}"
+            if epi[1] == "center" and not hasattr(st.head, "_center"):
+                return (f"{what}'center' epilogue needs a head exposing a "
+                        "_center() row")
+            if type(st.head).prepare not in (DetectorHead.prepare,
+                                             ForecastHead.prepare):
+                return (f"{what}head {st.head.name!r} overrides prepare(); "
+                        "the megakernel feeds the raw window and only "
+                        "subsumes the base window/forecast views via zero "
+                        "weight rows")
+        return ops.grouped_fuse_reason(
+            [st.stack for st in self._units],
+            names=[st.name or f"unit{i}"
+                   for i, st in enumerate(self._units)],
+            k0=max(st.window * self.n_features for st in self._units))
+
+    def _mega_applicable(self, key: Tuple) -> bool:
+        """True when THIS ready-combination runs as one launch: the engine
+        packs, more than one unit co-fired, and the co-firing units agree on
+        (streams, window, block length), so one arena holds them all."""
+        if not self._mega or len(key) < 2:
+            return False
+        sts = [self._units[gi] for gi, _ in key]
+        return (len({(st.n_streams, st.window) for st in sts}) == 1
+                and len({length for _, length in key}) == 1)
+
+    def _mega_pack(self, subset: Tuple[int, ...]) -> _MegaPack:
+        """The packed arenas, kernel layout and target buffer for one ready
+        subset, built on first use."""
+        pack = self._mega_packs.get(subset)
+        if pack is not None:
+            return pack
+        sts = [self._units[gi] for gi in subset]
+        kinds = [ops.GROUPED_KIND_LOGITS if st.kernel_epi[0] == "logits"
+                 else ops.GROUPED_KIND_SCORE for st in sts]
+        plan, arrays = ops.build_grouped_plan(
+            [st.stack for st in sts], kinds,
+            k0=max(st.window * self.n_features for st in sts))
+        tgt = torch.zeros((len(sts), sts[0].n_streams, plan.n_out),
+                          dtype=torch.float32, device=self.device)
+        for k, st in enumerate(sts):
+            if st.kernel_epi[1] == "center":
+                # The head's cached device row: uploaded once, shared with
+                # its per-group epilogue.
+                center = st.head._center(self.device)
+                tgt[k, :, :center.shape[0]] = center
+        widths = tuple(
+            plan.n_outs[k] if kinds[k] == ops.GROUPED_KIND_LOGITS else 1
+            for k in range(len(sts)))
+        adapt_sig = tuple(
+            None if st.adapt is None else
+            (type(st.head).calib_update, st.adapt.capacity,
+             st.adapt.headroom) for st in sts)
+        sig = (plan, tuple((st.n_streams, st.window) for st in sts),
+               tuple(st.kernel_epi for st in sts), adapt_sig)
+        pack = _MegaPack(
+            plan=plan, arrays=arrays,
+            kernel=(ops.prepare_grouped(plan, arrays)
+                    if self.device.type == "cuda" else None),
+            tgt=tgt, tgt_sels=tuple(st.kernel_epi[1] for st in sts),
+            widths=widths, heads=tuple(st.head for st in sts),
+            adapts=tuple(st.adapt for st in sts), sig=sig)
+        self._mega_packs[subset] = pack
+        return pack
+
+    def _get_mega_step(self, subset: Tuple[int, ...],
+                       length: int) -> Tuple[Callable, _MegaPack]:
+        """The one-launch step for a ready subset and block length, cached
+        on ``(pack.sig, length)``: equal-geometry subsets share one
+        closure, and the pack (arenas, targets, kernel layout) is its
+        runtime operand."""
+        pack = self._mega_pack(subset)
+        cache_key = (pack.sig, length)
+        step = self._mega_steps.get(cache_key)
+        if step is not None:
+            return step, pack
+        backend = self._backend
+        w = self._units[subset[0]].window
+        f = self.n_features
+
+        def _mega(arena, calibs, countss, block, pos, thrs, pack):
+            # arena: (G, S, W, F) rings, updated in place; block: (G, S, L,
+            # F) pending readings.  Same trim-then-write contract as the
+            # per-group body, batched over the group axis: co-firing units
+            # of one window share their ring position.
+            g, s = arena.shape[:2]
+            rings = arena.view(g * s, w, f)
+            length_ = block.shape[2]
+            off = max(length_ - w, 0)
+            _ring_write(rings, block.reshape(g * s, length_, f)[:, off:],
+                        (pos + off) % w)
+            end = (pos + length_) % w
+            win = torch.cat((rings[:, end:], rings[:, :end]), dim=1) \
+                .reshape(g, s, w * f)
+            # Epilogue targets: the window fills the plan's k0 = w * f lanes
+            # (a head whose model eats fewer, forecast, meets zero weight
+            # rows); the target is the window, or its newest reading.
+            tgt = pack.tgt
+            n_out = tgt.shape[2]
+            for k, sel in enumerate(pack.tgt_sels):
+                if sel == "window":
+                    n = min(n_out, w * f)
+                    tgt[k, :, :n] = win[k, :, :n]
+                elif sel == "tail":
+                    n = min(n_out, f)
+                    tgt[k, :, :n] = win[k, :, w * f - f:w * f - f + n]
+            payload = ops.grouped_apply(win, pack.plan, pack.arrays, tgt,
+                                        backend=backend,
+                                        prepared=pack.kernel)
+            for k, adapt in enumerate(pack.adapts):
+                if adapt is not None:
+                    pack.heads[k].calib_update(
+                        calibs[k], countss[k], payload[k][:, :1], thrs[k],
+                        adapt.headroom)
+            return payload
+
+        self._mega_steps[cache_key] = _mega
+        return _mega, pack
+
+    def _dispatch_mega(self, key: Tuple) -> Tuple[torch.Tensor, _MegaPack]:
+        """Build the operands of a stackable ready-combination, advance the
+        units' serving state and launch its one-launch step.  Returns
+        (payload, pack)."""
+        sts = [self._units[gi] for gi, _ in key]
+        subset = tuple(gi for gi, _ in key)
+        length = key[0][1]
+        full = np.stack(self._pending[-length:], axis=1)   # (streams, L, F)
+        blocks, poss = [], set()
+        for st in sts:
+            span = self._count - st.consumed
+            blocks.append(full[st.offset:st.offset + st.n_streams])
+            poss.add((st.pos + (span - length)) % st.window)
+            st.pos = (st.pos + span) % st.window
+            st.consumed = self._count
+            st.fires += 1
+        (pos,) = poss       # one window, one readiness schedule, one position
+        step, pack = self._get_mega_step(subset, length)
+        payload = step(self._arenas[subset],
+                       [self._calibs[gi] for gi in subset],
+                       [self._counts[gi] for gi in subset],
+                       to_device(np.stack(blocks), self.device), pos,
+                       [self._thr(st) for st in sts], pack)
+        return payload, pack
+
+    def _mega_example_args(self, key: Tuple) -> Tuple[Callable, Tuple]:
+        """(step, scratch operands) for a ready-combination's mega step, as
+        :meth:`warmup` runs it.  Serving state is not touched."""
+        subset = tuple(gi for gi, _ in key)
+        length = key[0][1]
+        step, pack = self._get_mega_step(subset, length)
+        sts = [self._units[gi] for gi in subset]
+        states = [self._calib_state(st) for st in sts]
+        block = torch.zeros((len(sts), sts[0].n_streams, length,
+                             self.n_features), dtype=torch.float32,
+                            device=self.device)
+        return step, (torch.zeros_like(self._arenas[subset]),
+                      [c for c, _ in states], [n for _, n in states], block,
+                      0, [self._thr(st) for st in sts], pack)
+
     # -- readiness schedule ------------------------------------------------
 
     def _ready(self, st: _UnitState, count: int) -> bool:
@@ -520,8 +801,14 @@ class ServingCore:
         """Run every step shape the readiness schedule can produce on
         scratch state, outside the serve clock: builds and loads the
         kernels, and warms the allocator and the libraries the step uses.
-        Serving state is left untouched."""
+        Serving state is left untouched.  Routing mirrors :meth:`ingest`:
+        stackable multi-unit keys run the mega step, the others each ready
+        unit's step."""
         for key in self._schedule_keys():
+            if self._mega_applicable(key):
+                step, args = self._mega_example_args(key)
+                step(*args)
+                continue
             for gi, length in key:
                 st = self._units[gi]
                 ring = torch.zeros_like(self._rings[gi])
@@ -567,6 +854,17 @@ class ServingCore:
         # step reads is recalibrated exactly as in the sync loop.
         verdicts = self._harvest() if self.async_depth else []
 
+        mega_key = tuple((gi, min(self._count - st.consumed, st.window))
+                         for gi, st in ready)
+        if self._mega_applicable(mega_key):
+            # One grouped kernel launch for the whole ready subset.
+            payload, pack = self._dispatch_mega(mega_key)
+            self.stats.dispatches += 1
+            self.stats.steps += 1
+            flight = _InFlight(mega_key, [payload], self._count - 1, t0,
+                               pack.unpack)
+            return self._land(flight, verdicts, t0)
+
         key, outs = [], []
         for gi, st in ready:
             # span = cycles since the unit's last step; the pending tail
@@ -588,8 +886,14 @@ class ServingCore:
             st.fires += 1
             self.stats.dispatches += st.dispatch_cost
         self.stats.steps += 1
-
         flight = _InFlight(tuple(key), outs, self._count - 1, t0)
+        return self._land(flight, verdicts, t0)
+
+    def _land(self, flight: _InFlight, verdicts: List[Verdict],
+              t0: float) -> List[Verdict]:
+        """Finish an ingest that dispatched ``flight``: leave it in flight
+        (async, ``verdicts`` holds the previous step's) or turn it into
+        verdicts now (sync)."""
         if self.async_depth:
             # Dispatch-and-return: the harvest at the next ready boundary
             # (or flush) turns the step into verdicts.

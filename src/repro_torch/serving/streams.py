@@ -11,7 +11,8 @@ launch per verdict step; with ``fused=False`` it is one launch per layer
 
 This is the one-model façade over :class:`~repro_torch.serving.core.
 ServingCore`, the counterpart of ``repro.serving.streams.StreamEngine`` on a
-single device (fleet meshes are not ported yet).
+single device (fleet meshes are not ported yet; a fleet of different models
+is ``GroupedStreamEngine``).
 """
 
 from __future__ import annotations

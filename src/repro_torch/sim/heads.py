@@ -25,7 +25,7 @@ reference's numpy, so verdicts agree bit for bit on equal step outputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +84,15 @@ class DetectorHead:
         verdict payload."""
         raise NotImplementedError
 
+    def kernel_epilogue(self) -> Optional[Tuple[str, str]]:
+        """The head's in-kernel epilogue spec for the grouped megakernel, or
+        None when the engine must serve this head per group.  The spec is
+        ``(payload, target)``: ``("logits", "none")`` passes the final
+        activations through; ``("mse", "window" | "tail" | "center")``
+        reduces to the mean squared error against the whole window, its
+        newest reading, or a fixed center row.  Custom heads opt in."""
+        return None
+
     def host_verdicts(self, out: np.ndarray,
                       threshold: Optional[float] = None) -> Tuple[
             np.ndarray, Optional[np.ndarray], Optional[np.ndarray],
@@ -102,6 +111,11 @@ class ClassifierHead(DetectorHead):
 
     def epilogue(self, win, out):
         return out                      # the logits ARE the verdict payload
+
+    def kernel_epilogue(self):
+        # Pass-through logits; a final-layer softmax is masked in-kernel to
+        # the group's true class count.
+        return ("logits", "none")
 
     def host_verdicts(self, out, threshold=None):
         pred = out.argmax(axis=-1)
@@ -231,6 +245,9 @@ class ReconstructionHead(ScoreHead):
     def batch_scores(self, outputs, x):
         return torch.mean(torch.square(outputs - x), dim=-1)
 
+    def kernel_epilogue(self):
+        return ("mse", "window")
+
 
 @dataclasses.dataclass(frozen=True)
 class MarginHead(ScoreHead):
@@ -239,6 +256,18 @@ class MarginHead(ScoreHead):
 
     center: Optional[Tuple[float, ...]] = None
     name: str = "margin"
+    # The center row on each device it was asked for, uploaded once.
+    _centers: Dict[torch.device, torch.Tensor] = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
+
+    def _center(self, device: torch.device = torch.device("cpu")
+                ) -> torch.Tensor:
+        """The center as an f32 row on ``device``, uploaded on first use."""
+        center = self._centers.get(device)
+        if center is None:
+            center = self._centers[device] = to_device(
+                np.asarray(self.center, np.float32), device)
+        return center
 
     def validate(self, input_size: int, n_outputs: int) -> None:
         if self.center is None:
@@ -251,8 +280,11 @@ class MarginHead(ScoreHead):
         super().validate(input_size, n_outputs)
 
     def batch_scores(self, outputs, x):
-        center = to_device(np.asarray(self.center, np.float32), outputs.device)
-        return torch.mean(torch.square(outputs - center), dim=-1)
+        return torch.mean(torch.square(outputs - self._center(outputs.device)),
+                          dim=-1)
+
+    def kernel_epilogue(self):
+        return ("mse", "center")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,3 +326,9 @@ class ForecastHead(ScoreHead):
         # x is the FULL window batch; the target is its last reading.
         return torch.mean(torch.square(outputs - x[..., -self.n_features:]),
                           dim=-1)
+
+    def kernel_epilogue(self):
+        # The megakernel feeds the FULL window and zero-pads the model's
+        # weight rows past its true input width, so prepare()'s slice is
+        # subsumed; the target is the window's newest reading.
+        return ("mse", "tail")

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.bridge import params_from_numpy
 from repro_torch.core.quantize import calibration_samples
-from repro_torch.serving import StreamEngine
+from repro_torch.serving import GroupedStreamEngine, ModelGroup, StreamEngine
 from repro_torch.sim import build_detector
 
 torch.set_num_threads(1)
@@ -60,6 +60,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
                                    device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StreamEngine(model, cpu_params, n_streams=2)
+    groups = [ModelGroup(name, model, cpu_params, 2) for name in ("a", "b")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GroupedStreamEngine(groups)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_numpy({1: {"w": np.zeros((2, 2), np.float32)}})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -67,3 +70,4 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     # The explicit CPU request is honoured.
     assert StreamEngine(model, cpu_params, n_streams=2,
                         device="cpu").device.type == "cpu"
+    assert GroupedStreamEngine(groups, device="cpu").device.type == "cpu"

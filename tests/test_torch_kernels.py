@@ -11,7 +11,9 @@ integer products pass 2**24, so f32 rounding follows the summation order.
 INT within 1e-3: the same, and a last-bit difference ahead of a requantize
 can move an INT activation code by one step (1/32767 of its calibrated
 range), which the next layer's weights carry to the output (measured up to
-1.5e-4 on the card).
+1.5e-4 on the card).  The grouped kernel's score lanes are reductions summed
+in another order than ``torch.mean``: within 1e-5 relative for SINT; a
+final softmax runs its own expf and row sum: within the REAL tolerance.
 """
 
 import numpy as np
@@ -21,14 +23,20 @@ import torch
 from repro_torch.core import layers as TL
 from repro_torch.core import quantize, sequential
 from repro_torch.kernels import fused_mlp, ops, qmatmul, ref
-from repro_torch.serving import StreamEngine
-from repro_torch.sim import build_autoencoder, build_detector, fleet_readings
+from repro_torch.serving import GroupedStreamEngine, ModelGroup, StreamEngine
+from repro_torch.sim import (ClassifierHead, ForecastHead, MarginHead,
+                             ReconstructionHead, build_autoencoder,
+                             build_detector, build_forecaster,
+                             build_margin_model, fleet_readings)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
 
 TOL = {"REAL": 1e-5, "INT": 1e-3, "DINT": 1e-4}
-BUILDERS = {"detector": build_detector, "autoencoder": build_autoencoder}
+BUILDERS = {"detector": build_detector, "autoencoder": build_autoencoder,
+            "margin": build_margin_model, "forecaster": build_forecaster}
+FLEET = ("detector", "autoencoder", "margin", "forecaster")
+FLEET_KINDS = (ops.GROUPED_KIND_LOGITS,) + (ops.GROUPED_KIND_SCORE,) * 3
 
 
 @pytest.fixture(autouse=True)
@@ -45,7 +53,7 @@ def card_model(kind, scheme, seed=0):
                                device="cuda")
     if scheme != "REAL":
         calib = np.random.default_rng(seed).standard_normal(
-            (8, 400)).astype(np.float32)
+            (8, model.input_shape[0])).astype(np.float32)
         params = quantize.quantize_params(
             model, params, scheme,
             calibration=quantize.calibration_samples(calib, k=8))
@@ -63,7 +71,7 @@ def check(scheme, got, want):
 
 @pytest.mark.parametrize("m", (1024, 1000, 37))
 @pytest.mark.parametrize("scheme", ("REAL", "SINT", "INT", "DINT"))
-@pytest.mark.parametrize("kind", sorted(BUILDERS))
+@pytest.mark.parametrize("kind", ("autoencoder", "detector"))
 def test_fused_mlp_matches_plain(kind, scheme, m):
     model, params = card_model(kind, scheme)
     stack = ops.dense_stack(model, params)
@@ -157,3 +165,101 @@ def test_engine_launches_its_kernels(fused):
         assert fused_mlp.launches == counts[0]
     assert [v.pred for v in got] == [v.pred for v in want]
     np.testing.assert_array_equal(engine.last_logits, plain.last_logits)
+
+
+def run_grouped(stacks, kinds, m, seed=0):
+    """The grouped kernel and its plain version on one random fleet batch;
+    checks that ops.grouped_apply launched the kernel exactly once."""
+    plan, arrays = ops.build_grouped_plan(stacks, kinds, k0=400)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((plan.n_groups, m, plan.k0), generator=g).cuda()
+    tgt = torch.randn((plan.n_groups, m, plan.n_out), generator=g).cuda()
+    before = fused_mlp.grouped_launches
+    got = ops.grouped_apply(x, plan, arrays, tgt)
+    assert fused_mlp.grouped_launches == before + 1
+    want = ref.grouped_mlp_ref(
+        x, [list(zip(arrays["stacks"][k], plan.acts[k]))
+            for k in range(plan.n_groups)],
+        kinds=plan.kinds, true_k0s=plan.true_k0s, n_outs=plan.n_outs,
+        tgt=tgt, n_pay=plan.payload_width)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (plan.n_groups, m, plan.payload_width)
+    assert torch.isfinite(got).all()
+    return plan, got, want
+
+
+@pytest.mark.parametrize("m", (1024, 1000, 37))
+@pytest.mark.parametrize("scheme", ("REAL", "SINT", "INT", "DINT"))
+def test_grouped_mlp_matches_plain(scheme, m):
+    """The four-head §7 fleet at full width: logits bit-equal for SINT,
+    score lanes within 1e-5 relative; REAL/INT/DINT within their TOL."""
+    stacks = [ops.dense_stack(*card_model(kind, scheme, seed=i))
+              for i, kind in enumerate(FLEET)]
+    plan, got, want = run_grouped(stacks, FLEET_KINDS, m)
+    assert plan.widths == ((400, 64), (64, 32), (32, 64), (64, 400))
+    if scheme == "SINT":
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[1:], want[1:], rtol=1e-5, atol=0)
+    else:
+        check(scheme, got, want)
+
+
+def test_grouped_mlp_final_softmax():
+    """A softmax classifier (masked to its 3 true lanes inside a 400-wide
+    union) beside the autoencoder."""
+    stacks = [act_model(["relu", "relu", "softmax"], [64, 32, 3], "SINT"),
+              ops.dense_stack(*card_model("autoencoder", "SINT"))]
+    _, got, want = run_grouped(stacks, FLEET_KINDS[:2], 1000)
+    torch.testing.assert_close(got, want, rtol=TOL["REAL"], atol=TOL["REAL"])
+    assert (got[0, :, 3:] == 0).all()
+    torch.testing.assert_close(got[0, :, :3].sum(-1),
+                               torch.ones(1000, device="cuda"))
+
+
+def test_grouped_mlp_skip_heavy():
+    """Groups of 1, 6 and 2 layers: the shallow ones pass their payload
+    through five and four skipped positions, every continuous activation
+    runs somewhere (f32)."""
+    stacks = [act_model(["linear"], [2], "REAL"),
+              act_model(["sigmoid", "tanh", "elu", "leaky_relu", "swish",
+                         "linear"], [64, 48, 32, 24, 16, 8], "REAL"),
+              act_model(["relu", "linear"], [16, 400], "REAL")]
+    plan, got, want = run_grouped(stacks, (0, 0, 1), 1000)
+    assert plan.skips == ((0, 1, 1, 1, 1, 1), (0,) * 6, (0, 0, 1, 1, 1, 1))
+    check("REAL", got, want)
+
+
+@pytest.mark.parametrize("megakernel", (None, False))
+def test_grouped_engine_launches_its_kernels(megakernel):
+    """The four-head fleet, 32 plants per group: one grouped launch per
+    verdict step (or one fused_mlp per group per step), preds equal to the
+    plain path."""
+    readings = np.tile(fleet_readings(8, 230, seed=0), (1, 16, 1))
+    heads = (ClassifierHead(), ReconstructionHead(threshold=0.5),
+             MarginHead(threshold=0.5, center=(0.0,) * 16),
+             ForecastHead(threshold=0.5))
+    groups = [ModelGroup(kind, *card_model(kind, "SINT", seed=i), 32, head)
+              for i, (kind, head) in enumerate(zip(FLEET, heads))]
+    engine = GroupedStreamEngine(groups, megakernel=megakernel)
+    plain = GroupedStreamEngine(groups, megakernel=megakernel,
+                                backend="ref")
+    engine.warmup()
+    counts = (fused_mlp.grouped_launches, fused_mlp.launches)
+    got, want = [], []
+    for c in range(readings.shape[0]):
+        got.extend(engine.ingest(readings[c]))
+        want.extend(plain.ingest(readings[c]))
+    steps = engine.stats.steps
+    assert steps == 4
+    if megakernel is None:
+        assert fused_mlp.grouped_launches - counts[0] == steps
+        assert fused_mlp.launches == counts[1]
+    else:
+        assert fused_mlp.launches - counts[1] == 4 * steps
+        assert fused_mlp.grouped_launches == counts[0]
+    assert [v.pred for v in got] == [v.pred for v in want]
+    np.testing.assert_array_equal(engine.last_outputs["detector"],
+                                  plain.last_outputs["detector"])
+    for kind in FLEET[1:]:
+        np.testing.assert_allclose(engine.last_outputs[kind],
+                                   plain.last_outputs[kind], rtol=1e-5)
