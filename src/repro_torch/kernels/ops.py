@@ -1,6 +1,7 @@
 """Public wrappers around the port's kernels: the ``repro.kernels.ops``
-counterpart for the fleet detector's kernels (``qmatmul``, ``fused_mlp`` and
-the grouped ``grouped_fused_mlp``), with the grouped fleet's packing.
+counterpart (``qmatmul``, ``fused_mlp`` and the grouped
+``grouped_fused_mlp`` with the grouped fleet's packing; ``sparse_matmul``
+behind :func:`sparse_dense`; ``ssd_scan`` behind :func:`ssd`).
 
 The ``backend`` contract:
 
@@ -8,7 +9,11 @@ The ``backend`` contract:
   (``ref``) for CPU tensors;
 * ``"kernel"`` launches the kernel and raises on CPU tensors (a CUDA kernel
   has no interpret mode);
-* ``"ref"`` runs the plain version on either device.
+* ``"ref"`` runs the plain version on either device;
+* a mapping from kernel names (:data:`KERNELS`) to those three gives each
+  kernel its own (a kernel it does not name takes ``"auto"``): a path that
+  launches some kernels and runs the plain versions of others, so that one
+  kernel can be held to its plain version end to end.
 
 A CUDA tensor under ``"auto"`` launches the kernel or raises: nothing falls
 back quietly.
@@ -17,12 +22,13 @@ back quietly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core.layers import ACTIVATIONS, Dense, Input, int_matmul
-from repro_torch.kernels import fused_mlp, qmatmul, ref
+from repro_torch.core.prune import BlockSparseWeight
+from repro_torch.kernels import fused_mlp, qmatmul, ref, sparse_matmul, ssd_scan
 from repro_torch.kernels.fused_mlp import (GROUPED_ACT_IDS,
                                            GROUPED_KIND_LOGITS,
                                            GROUPED_KIND_SCORE, FusedLayer,
@@ -31,9 +37,24 @@ from repro_torch.kernels.fused_mlp import (GROUPED_ACT_IDS,
 
 LayerStack = Sequence[Tuple[Dict[str, torch.Tensor], str]]
 BACKENDS = ("auto", "kernel", "ref")
+KERNELS = ("qmatmul", "fused_mlp", "grouped_fused_mlp", "sparse_matmul",
+           "ssd_scan")
+Backend = Union[str, Mapping[str, str]]
 
 
-def _use_kernel(t: torch.Tensor, backend: str, kernel: str) -> bool:
+def _backend_of(backend: Backend, kernel: str) -> str:
+    """The backend that ``backend`` gives ``kernel``."""
+    if isinstance(backend, Mapping):
+        unknown = set(backend) - set(KERNELS)
+        if unknown:
+            raise ValueError(f"backend names no kernel of {KERNELS}: "
+                             f"{sorted(unknown)}")
+        return backend.get(kernel, "auto")
+    return backend
+
+
+def _use_kernel(t: torch.Tensor, backend: Backend, kernel: str) -> bool:
+    backend = _backend_of(backend, kernel)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "ref":
@@ -65,7 +86,7 @@ def quantized_matmul(
     scale,
     bias: Optional[torch.Tensor] = None,
     *,
-    backend: str = "auto",
+    backend: Backend = "auto",
 ) -> torch.Tensor:
     """``(xq @ wq) * scale + bias`` with int accumulation, f32 out.
 
@@ -203,7 +224,7 @@ def fused_forward(
     x: torch.Tensor,
     stack: Union[LayerStack, FusedStack],
     *,
-    backend: str = "auto",
+    backend: Backend = "auto",
 ) -> torch.Tensor:
     """Whole Dense stack in ONE launch: ``x -> outputs`` (M, N_last).
 
@@ -495,7 +516,7 @@ def grouped_apply(
     arrays: Dict,
     tgt: torch.Tensor,
     *,
-    backend: str = "auto",
+    backend: Backend = "auto",
     prepared: Optional[GroupedStack] = None,
 ) -> torch.Tensor:
     """One forward + head epilogue for a packed heterogeneous fleet.
@@ -542,3 +563,61 @@ def grouped_apply(
     return fused_mlp.grouped_fused_mlp(
         x.to(torch.float32).contiguous(), prepared,
         tgt.to(torch.float32).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse matmul (§6.2 pruning)
+# ---------------------------------------------------------------------------
+
+
+def sparse_dense(x: torch.Tensor, w: BlockSparseWeight, *,
+                 backend: Backend = "auto") -> torch.Tensor:
+    """Pruned matmul ``x @ w`` that skips zero blocks entirely."""
+    if not _use_kernel(x, backend, "sparse_matmul"):
+        return ref.sparse_matmul_ref(x, w)
+    return sparse_matmul.sparse_matmul(x, w)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan (mamba2)
+# ---------------------------------------------------------------------------
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor, *, backend: Backend = "auto") -> torch.Tensor:
+    """Batched, grouped SSD scan.
+
+    Args:
+      x: (B, T, H, P); dt: (B, T, H); a: (H,);
+      b/c: (B, T, G, N), G groups shared by H / G heads each.
+    Returns (B, T, H, P) f32.
+
+    ``backend``: ``"auto"`` (the kernel for CUDA tensors, ``"chunked"``
+    for CPU tensors), ``"kernel"``, ``"ref"`` (the sequential recurrence,
+    :func:`ref.ssd_scan_ref`, the whole batch stepped together) or
+    ``"chunked"`` (the chunk-parallel plain version,
+    :func:`ref.ssd_chunked_ref`, at the kernel's chunk ``ssd_scan.CHUNK``).
+    The kernel covers the whole batch in one launch, reads B/C by group and
+    takes any T, treating the steps past T as dt = 0; ``"chunked"`` pads T
+    so, with zeros (steps with dt = 0 contribute nothing), as the
+    reference's Pallas wrapper pads.
+    """
+    backend = _backend_of(backend, "ssd_scan")
+    if backend == "chunked" or backend == "ref" or not _use_kernel(
+            x, backend, "ssd_scan"):
+        bsz, t, h = x.shape[:3]
+        reps = h // b.shape[2]
+        b_full = torch.repeat_interleave(b, reps, dim=2)
+        c_full = torch.repeat_interleave(c, reps, dim=2)
+        if backend == "ref":
+            return ref.ssd_scan_ref(x, dt, a, b_full, c_full)
+        pad = (-t) % ssd_scan.CHUNK
+        xp, dtp, bp, cp = (
+            torch.nn.functional.pad(v, (0, 0) * (v.ndim - 2) + (0, pad))
+            for v in (x, dt, b_full, c_full))
+        return torch.stack([
+            ref.ssd_chunked_ref(xp[i], dtp[i], a, bp[i], cp[i],
+                                chunk=ssd_scan.CHUNK)
+            for i in range(bsz)])[:, :t]
+    return ssd_scan.ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
+                             b.contiguous(), c.contiguous())

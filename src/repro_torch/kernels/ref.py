@@ -16,6 +16,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.layers import ACTIVATIONS, int_matmul, quantized_matvec
+from repro_torch.core.prune import BlockSparseWeight
 
 
 def qmatmul_ref(
@@ -90,3 +91,92 @@ def grouped_mlp_ref(
                              dim=-1)[:, None]
         pays.append(torch.nn.functional.pad(pay, (0, n_pay - pay.shape[1])))
     return torch.stack(pays)
+
+
+def sparse_matmul_ref(x: torch.Tensor, w: BlockSparseWeight) -> torch.Tensor:
+    """Dense reference for the block-sparse matmul: ``x @ densify(w)``."""
+    return x @ w.to_dense()
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Sequential (step-by-step) SSD recurrence — the ground-truth scan.
+
+      S_t = exp(dt_t * A_h) * S_{t-1} + dt_t * (x_t ⊗ B_t);  y_t = C_t · S_t
+
+    x (..., T, H, P), dt (..., T, H), a (H,), b/c (..., T, H, N): one
+    sequence, or a batch of them stepped together (any leading dims);
+    returns y (..., T, H, P).
+    """
+    h, p = x.shape[-2:]
+    state = torch.zeros(x.shape[:-3] + (h, p, b.shape[-1]),
+                        dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(x.shape[-3]):
+        state, y = ssd_update_ref(state, x[..., i, :, :], dt[..., i, :], a,
+                                  b[..., i, :, :], c[..., i, :, :])
+        ys.append(y)
+    return torch.stack(ys, dim=-3)
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor,
+                    chunk: int = 128) -> torch.Tensor:
+    """Chunk-parallel SSD over one sequence (the kernel's math, eager torch).
+
+    The intra-chunk work is batched matmuls over all chunks at once; only a
+    (H, P, N) state crosses chunks, in a short loop.  T must divide by
+    ``chunk``.
+    """
+    t, h, p = x.shape
+    n = b.shape[-1]
+    if t % chunk:
+        raise ValueError(f"T={t} is not a multiple of chunk={chunk}")
+    nc = t // chunk
+    xc = x.reshape(nc, chunk, h, p)
+    dtc = dt.reshape(nc, chunk, h)
+    bc = b.reshape(nc, chunk, h, n)
+    cc = c.reshape(nc, chunk, h, n)
+
+    alpha = dtc * a                                   # (nc, L, H)
+    s = torch.cumsum(alpha, dim=1)                    # (nc, L, H)
+    s_tot = s[:, -1]                                  # (nc, H)
+
+    # Intra-chunk (no state dependency: all chunks at once).  Masked to
+    # -inf before the exponent, so the upper triangle is exactly 0.
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    ds = s[:, :, None, :] - s[:, None, :, :]
+    decay = torch.exp(torch.where(mask[None, :, :, None], ds,
+                                  torch.tensor(float("-inf"),
+                                               device=x.device)))
+    cb = torch.einsum("clhn,cmhn->clmh", cc, bc)
+    y_intra = torch.einsum("clmh,cmh,cmhp->clhp", decay * cb, dtc, xc)
+
+    # Chunk contributions to the carried state.
+    w = torch.exp(s_tot[:, None, :] - s) * dtc        # (nc, L, H)
+    contrib = torch.einsum("clh,clhp,clhn->chpn", w, xc, bc)
+
+    state = torch.zeros((h, p, n), dtype=torch.float32, device=x.device)
+    y_inter = []
+    for i in range(nc):
+        # inter-chunk output: the prior state read through the decayed C
+        y_inter.append(torch.exp(s[i])[..., None] * torch.einsum(
+            "lhn,hpn->lhp", cc[i], state))
+        state = torch.exp(s_tot[i])[:, None, None] * state + contrib[i]
+    return (y_intra + torch.stack(y_inter)).reshape(t, h, p)
+
+
+def ssd_update_ref(state: torch.Tensor, xt: torch.Tensor, dtt: torch.Tensor,
+                   a: torch.Tensor, bt: torch.Tensor, ct: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD step (the decode path): returns ``(new_state, y_t)``.
+
+    state (..., H, P, N), xt (..., H, P), dtt (..., H), a (H,), bt/ct
+    (..., H, N): any leading batch dimensions.
+    """
+    decay = torch.exp(dtt * a)[..., None, None]
+    state = decay * state + (dtt[..., None] * xt)[..., None] \
+        * bt[..., None, :]
+    yt = torch.einsum("...hpn,...hn->...hp", state, ct)
+    return state, yt

@@ -1,0 +1,303 @@
+"""Mamba-2 (SSD) blocks and the attention-free mamba2-370m model
+[arXiv:2405.21060]: ``repro.models.mamba2``'s counterpart.
+
+Block: in_proj → causal depthwise conv (xBC) → SSD scan → gated RMSNorm →
+out_proj.  The full-sequence passes (:func:`forward_logits`, :func:`prefill`)
+run the SSD through ``ops.ssd`` — the hand-written ``ssd_scan`` kernel on the
+card, one launch per layer for the whole batch; decode carries (conv, ssm)
+state per sequence and runs plain tensor ops (the reference's
+``ssd_update_ref``, no kernel).  The in/out projections are quantizable
+(§6.1) through ``common.linear``; the scan stays f32.
+
+The layer stack is a Python loop over layers whose params are stacked on a
+leading ``n_layers`` axis (the reference's tree, so ``repro_torch.bridge``
+loads it leaf for leaf); each layer reads views of its slice.  ``backend``
+(``ops.Backend``) is passed to every kernel wrapper on the path.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.models import common as cm
+
+Params = Dict[str, Any]
+
+
+def _dims(cfg: ArchConfig):
+    d_inner = cfg.d_inner
+    h = cfg.ssm_heads
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    conv_dim = d_inner + 2 * g * n
+    proj_out = 2 * d_inner + 2 * g * n + h   # z, xBC, dt
+    return d_inner, h, g, n, conv_dim, proj_out
+
+
+def _uniform(generator: torch.Generator, n: int, lo: float, hi: float
+             ) -> torch.Tensor:
+    return torch.rand((n,), generator=generator, device=generator.device) \
+        * (hi - lo) + lo
+
+
+def mamba_init(generator: torch.Generator, cfg: ArchConfig) -> Params:
+    """One mixer's params, drawn from ``generator`` on its device."""
+    d_inner, h, g, n, conv_dim, proj_out = _dims(cfg)
+    dev = generator.device
+    return {
+        "in_proj": cm.linear_init(generator, cfg.d_model, proj_out,
+                                  bias=False, quant=cfg.quant,
+                                  dtype=cfg.dtype),
+        "conv_w": (torch.randn((cfg.conv_kernel, conv_dim),
+                               generator=generator, device=dev)
+                   / np.sqrt(cfg.conv_kernel)).to(cfg.dtype),
+        "conv_b": torch.zeros((conv_dim,), dtype=torch.float32, device=dev),
+        # softplus^-1 of dt drawn log-uniform in [1e-3, 1e-1]
+        "dt_bias": torch.log(torch.expm1(torch.exp(
+            _uniform(generator, h, np.log(1e-3), np.log(1e-1))))),
+        "a_log": torch.log(torch.exp(_uniform(generator, h, 0.0,
+                                              np.log(16.0)))),
+        "d_skip": torch.ones((h,), dtype=torch.float32, device=dev),
+        "norm": cm.rmsnorm_init(d_inner, dev),
+        "out_proj": cm.linear_init(generator, d_inner, cfg.d_model,
+                                   bias=False, quant=cfg.quant,
+                                   dtype=cfg.dtype),
+    }
+
+
+def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
+    d_inner, h, g, n, conv_dim, _ = _dims(cfg)
+    z = zxbcdt[..., :d_inner]
+    xbc = zxbcdt[..., d_inner:d_inner + conv_dim]
+    dt = zxbcdt[..., d_inner + conv_dim:]
+    return z, xbc, dt
+
+
+def _causal_conv(p: Params, xbc: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, S, C): left pad K - 1, one filter per
+    channel (a cross-correlation, as ``lax.conv_general_dilated``)."""
+    k, c = p["conv_w"].shape
+    w = p["conv_w"].to(xbc.dtype).t().unsqueeze(1)        # (C, 1, K)
+    y = F.conv1d(F.pad(xbc.transpose(1, 2), (k - 1, 0)), w, groups=c)
+    return F.silu(y.transpose(1, 2) + p["conv_b"].to(xbc.dtype))
+
+
+def _mixer_inputs(p: Params, cfg: ArchConfig, xbc: torch.Tensor,
+                  dt_raw: torch.Tensor):
+    """(xs, B, C, dt, A) of the SSD, f32, from the conv's output."""
+    d_inner, h, g, n, _, _ = _dims(cfg)
+    b, s, _ = xbc.shape
+    xs = xbc[..., :d_inner].reshape(b, s, h, cfg.ssm_headdim) \
+        .to(torch.float32)
+    bmat = xbc[..., d_inner:d_inner + g * n].reshape(b, s, g, n) \
+        .to(torch.float32)
+    cmat = xbc[..., d_inner + g * n:].reshape(b, s, g, n).to(torch.float32)
+    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    return xs, bmat, cmat, dt, a
+
+
+def _gated_out(p: Params, cfg: ArchConfig, y: torch.Tensor,
+               xs: torch.Tensor, z: torch.Tensor, backend: kops.Backend
+               ) -> torch.Tensor:
+    """D skip, gated RMSNorm and out_proj over the SSD's output."""
+    b, s = z.shape[:2]
+    y = y + p["d_skip"][None, None, :, None] * xs
+    y = y.reshape(b, s, cfg.d_inner).to(cfg.dtype)
+    y = cm.rmsnorm(p["norm"], y * F.silu(z))
+    return cm.linear(p["out_proj"], y, backend=backend)
+
+
+def mamba_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                  backend: kops.Backend = "auto") -> torch.Tensor:
+    """Full-sequence mixer: x (B, S, d_model) -> (B, S, d_model)."""
+    zxbcdt = cm.linear(p["in_proj"], x, backend=backend)
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
+    xs, bmat, cmat, dt, a = _mixer_inputs(p, cfg, _causal_conv(p, xbc),
+                                          dt_raw)
+    y = kops.ssd(xs, dt, a, bmat, cmat, backend=backend)
+    return _gated_out(p, cfg, y, xs, z, backend)
+
+
+def _mamba_forward_state(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
+                         backend: kops.Backend = "auto"
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`mamba_forward` that also returns the final (conv, ssm) state."""
+    _, h, g, n, _, _ = _dims(cfg)
+    b, s, _ = x.shape
+    zxbcdt = cm.linear(p["in_proj"], x, backend=backend)
+    z, xbc_pre, dt_raw = _split_proj(cfg, zxbcdt)
+    # The conv state is the last K - 1 inputs, front-padded with zeros for
+    # prompts shorter than the kernel (the stepwise decode's initial state).
+    k1 = cfg.conv_kernel - 1
+    pad = max(k1 - s, 0)
+    conv_state = F.pad(xbc_pre, (0, 0, pad, 0))[:, -k1:, :]
+    xs, bmat, cmat, dt, a = _mixer_inputs(p, cfg, _causal_conv(p, xbc_pre),
+                                          dt_raw)
+    y = kops.ssd(xs, dt, a, bmat, cmat, backend=backend)
+
+    # Final SSM state: the recurrence's contribution sum (exact, O(S)),
+    # contracted per group (no repeat of B to heads).
+    alpha = dt * a                                          # (B, S, H)
+    srev = torch.flip(torch.cumsum(torch.flip(alpha, (1,)), dim=1), (1,))
+    w = torch.exp(srev - alpha) * dt                        # exp(Σ_{σ>τ} α) dt_τ
+    r = h // g
+    ssm_state = torch.einsum(
+        "bsgr,bsgrp,bsgn->bgrpn", w.reshape(b, s, g, r),
+        xs.reshape(b, s, g, r, -1), bmat).reshape(b, h, -1, n)
+    return (_gated_out(p, cfg, y, xs, z, backend),
+            {"conv": conv_state, "ssm": ssm_state})
+
+
+def mamba_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], *,
+                 backend: kops.Backend = "auto"
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token step: x (B, 1, d_model); ``cache`` carries the conv and
+    ssm state.  Returns the output and the new state (fresh tensors)."""
+    d_inner, h, g, n, _, _ = _dims(cfg)
+    b = x.shape[0]
+    zxbcdt = cm.linear(p["in_proj"], x, backend=backend)
+    z, xbc, dt_raw = _split_proj(cfg, zxbcdt)            # (B, 1, ·)
+
+    window = torch.cat([cache["conv"], xbc], dim=1)      # (B, K, C)
+    conv_state = window[:, 1:]
+    y = torch.einsum("bkc,kc->bc", window.to(torch.float32),
+                     p["conv_w"].to(torch.float32))
+    xbc1 = F.silu(y + p["conv_b"])                       # (B, C) f32
+
+    xs = xbc1[:, :d_inner].reshape(b, h, cfg.ssm_headdim)
+    r = h // g
+    bmat = torch.repeat_interleave(
+        xbc1[:, d_inner:d_inner + g * n].reshape(b, g, n), r, dim=1)
+    cmat = torch.repeat_interleave(
+        xbc1[:, d_inner + g * n:].reshape(b, g, n), r, dim=1)
+    dt = F.softplus(dt_raw[:, 0].to(torch.float32) + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+
+    new_state, yt = kref.ssd_update_ref(cache["ssm"], xs, dt, a, bmat, cmat)
+    yt = yt + p["d_skip"][None, :, None] * xs
+    yt = yt.reshape(b, 1, d_inner).to(cfg.dtype)
+    yt = cm.rmsnorm(p["norm"], yt * F.silu(z))
+    out = cm.linear(p["out_proj"], yt, backend=backend)
+    return out, {"conv": conv_state, "ssm": new_state}
+
+
+# ---------------------------------------------------------------------------
+# Full mamba2 model (norm → mixer → residual, no separate FFN)
+# ---------------------------------------------------------------------------
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _layer(blocks: Params, layer: int) -> Params:
+    """Views of one layer's slice of the stacked block params."""
+    if isinstance(blocks, dict):
+        return {k: _layer(v, layer) for k, v in blocks.items()}
+    return blocks[layer]
+
+
+def _to(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def model_init(generator: torch.Generator, cfg: ArchConfig, *,
+               device: torch.device) -> Params:
+    """Random params drawn from ``generator`` (on its device), placed on
+    ``device``: ``{"embed", "blocks" (stacked over layers), "final_norm"}``."""
+    emb = cm.embed_init(generator, cfg.vocab, cfg.d_model, cfg.dtype)
+    blocks = _stack([{"ln": cm.rmsnorm_init(cfg.d_model, generator.device),
+                      "mixer": mamba_init(generator, cfg)}
+                     for _ in range(cfg.n_layers)])
+    return _to({"embed": emb, "blocks": blocks,
+                "final_norm": cm.rmsnorm_init(cfg.d_model, generator.device)},
+               device)
+
+
+def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+                   backend: kops.Backend = "auto") -> torch.Tensor:
+    """Teacher-forced logits (B, S, vocab) f32."""
+    x = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    for layer in range(cfg.n_layers):
+        blk = _layer(params["blocks"], layer)
+        x = x + mamba_forward(blk["mixer"], cfg, cm.rmsnorm(blk["ln"], x),
+                              backend=backend)
+        x = cm.constrain(x, "btd")
+    x = cm.rmsnorm(params["final_norm"], x)
+    return cm.unembed(params["embed"], x)
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """The decode state arena: conv (L, B, K - 1, C) in ``cfg.dtype`` and ssm
+    (L, B, H, P, N) f32, zeros.  O(1) in ``cache_len``."""
+    d_inner, h, g, n, conv_dim, _ = _dims(cfg)
+    return {
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1,
+                             conv_dim), dtype=cfg.dtype, device=device),
+        "ssm": torch.zeros((cfg.n_layers, batch, h, cfg.ssm_headdim, n),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+            cache_len: int, *, backend: kops.Backend = "auto"
+            ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Full forward over the prompt, keeping each layer's final (conv, ssm)
+    state.  Returns ``(states, logits of the last position (B, 1, vocab))``;
+    the states are stacked over layers as :func:`init_cache` lays them out."""
+    h = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    convs, ssms = [], []
+    for layer in range(cfg.n_layers):
+        blk = _layer(params["blocks"], layer)
+        out, state = _mamba_forward_state(
+            blk["mixer"], cfg, cm.rmsnorm(blk["ln"], h), backend=backend)
+        h = h + out
+        convs.append(state["conv"])
+        ssms.append(state["ssm"])
+    h = cm.rmsnorm(params["final_norm"], h)
+    logits = cm.unembed(params["embed"], h[:, -1:])
+    return {"conv": torch.stack(convs), "ssm": torch.stack(ssms)}, logits
+
+
+def decode_step(params: Params, cfg: ArchConfig, cache: Dict[str, Any],
+                tokens: torch.Tensor, pos, *, backend: kops.Backend = "auto"
+                ) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """One token per row.  Updates ``cache`` IN PLACE (each layer's new
+    state is copied into its slice of the arena: the analogue of the
+    reference's donated cache) and returns it with the logits (B, 1, vocab).
+    ``pos`` is unused: the SSM state is recurrent, positions never index
+    it."""
+    x = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    for layer in range(cfg.n_layers):
+        blk = _layer(params["blocks"], layer)
+        out, new = mamba_decode(
+            blk["mixer"], cfg, cm.rmsnorm(blk["ln"], x),
+            {"conv": cache["conv"][layer], "ssm": cache["ssm"][layer]},
+            backend=backend)
+        cache["conv"][layer].copy_(new["conv"])
+        cache["ssm"][layer].copy_(new["ssm"])
+        x = x + out
+    x = cm.rmsnorm(params["final_norm"], x)
+    return cache, cm.unembed(params["embed"], x)
+
+
+def decode_step_multi(params: Params, cfg: ArchConfig, cache: Dict[str, Any],
+                      tokens: torch.Tensor, pos, *,
+                      backend: kops.Backend = "auto"
+                      ) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """Per-slot-position decode (pos (B,)).  The SSM state is recurrent per
+    batch row, so the plain step already decodes every slot independently."""
+    return decode_step(params, cfg, cache, tokens, pos, backend=backend)

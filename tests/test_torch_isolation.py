@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from repro_torch.bridge import params_from_numpy
+from repro_torch.configs.base import get_config
 from repro_torch.core.quantize import calibration_samples
-from repro_torch.serving import GroupedStreamEngine, ModelGroup, StreamEngine
+from repro_torch.models.api import get_model
+from repro_torch.serving import (Engine, GroupedStreamEngine, ModelGroup,
+                                 StreamEngine)
 from repro_torch.sim import build_detector
 
 torch.set_num_threads(1)
@@ -71,3 +74,20 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert StreamEngine(model, cpu_params, n_streams=2,
                         device="cpu").device.type == "cpu"
     assert GroupedStreamEngine(groups, device="cpu").device.type == "cpu"
+
+
+def test_llm_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    api = get_model(get_config("mamba2_370m").reduced().with_(
+        dtype=torch.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init(torch.Generator().manual_seed(0))
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(api, params, batch_slots=2, cache_len=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_cache(2, 8)
+    # The explicit CPU request is honoured.
+    engine = Engine(api, params, batch_slots=2, cache_len=8, device="cpu")
+    assert engine.device.type == "cpu"
+    assert engine.cache["ssm"].device.type == "cpu"

@@ -14,16 +14,24 @@ range), which the next layer's weights carry to the output (measured up to
 1.5e-4 on the card).  The grouped kernel's score lanes are reductions summed
 in another order than ``torch.mean``: within 1e-5 relative for SINT; a
 final softmax runs its own expf and row sum: within the REAL tolerance.
+``sparse_matmul`` (f32 FMAs in K order against cuBLAS's f32 product, TF32
+off) within 1e-4, pruned columns exactly 0.  ``ssd_scan`` (another cumsum
+and product order than the plain version) within the reference's own
+rtol 2e-4 / atol 2e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.base import get_config
 from repro_torch.core import layers as TL
-from repro_torch.core import quantize, sequential
-from repro_torch.kernels import fused_mlp, ops, qmatmul, ref
-from repro_torch.serving import GroupedStreamEngine, ModelGroup, StreamEngine
+from repro_torch.core import prune, quantize, sequential
+from repro_torch.kernels import (fused_mlp, ops, qmatmul, ref, sparse_matmul,
+                                 ssd_scan)
+from repro_torch.models.api import get_model
+from repro_torch.serving import (Engine, GroupedStreamEngine, ModelGroup,
+                                 Request, StreamEngine)
 from repro_torch.sim import (ClassifierHead, ForecastHead, MarginHead,
                              ReconstructionHead, build_autoencoder,
                              build_detector, build_forecaster,
@@ -263,3 +271,124 @@ def test_grouped_engine_launches_its_kernels(megakernel):
     for kind in FLEET[1:]:
         np.testing.assert_allclose(engine.last_outputs[kind],
                                    plain.last_outputs[kind], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# sparse_matmul: the §6.2 pruned layer (784 inputs padded to 7 x 128, 512)
+
+
+def stale_output(shape):
+    """Leave NaNs in the caching allocator's next block of this size, so an
+    output element the kernel never writes shows."""
+    torch.full(shape, float("nan"), device="cuda")
+
+
+def pruned_layer(sparsity, block, seed=0):
+    w = torch.randn((896, 512), generator=torch.Generator().manual_seed(seed))
+    return prune.compress_blocks(
+        prune.block_magnitude_prune(w.cuda(), sparsity, block), block)
+
+
+@pytest.mark.parametrize("m", (8, 1024, 37))
+@pytest.mark.parametrize("sparsity,block", [(s, (128, 128)) for s in
+                                            (0.0, 0.25, 0.5, 0.75)]
+                         + [(0.5, (64, 64))])
+def test_sparse_matmul_matches_plain(sparsity, block, m):
+    w = pruned_layer(sparsity, block)
+    x = torch.randn((m, 896), generator=torch.Generator().manual_seed(m)) \
+        .cuda()
+    stale_output((m, 512))
+    before = sparse_matmul.launches
+    got = ops.sparse_dense(x, w)
+    assert sparse_matmul.launches == before + 1
+    want = ref.sparse_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    dead = (w.to_dense() == 0).all(dim=0)
+    assert (got[:, dead] == 0).all()
+
+
+def test_sparse_matmul_pruned_column_and_all_zero():
+    """A block-column pruned whole is written as exact zeros by its own
+    blocks (no masking pass); an all-zero weight keeps one block."""
+    w = torch.randn((896, 512), generator=torch.Generator().manual_seed(3)) \
+        .cuda()
+    w[:, 128:256] = 0
+    bs = prune.compress_blocks(w, (128, 128))
+    assert bs.col_offsets.tolist() == [0, 7, 7, 14, 21]
+    x = torch.randn((1024, 896), generator=torch.Generator().manual_seed(4)) \
+        .cuda()
+    stale_output((1024, 512))
+    got = ops.sparse_dense(x, bs)
+    torch.cuda.synchronize()
+    assert (got[:, 128:256] == 0).all()
+    torch.testing.assert_close(got, x @ w, rtol=1e-4, atol=1e-4)
+    zero = prune.compress_blocks(torch.zeros((896, 512), device="cuda"),
+                                 (128, 128))
+    assert zero.nnz_blocks == 1
+    stale_output((1024, 512))
+    assert (ops.sparse_dense(x, zero) == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan: the Mamba-2 SSD
+
+
+def ssd_inputs(bsz, t, h, p, n, g, seed=0):
+    """Inputs shaped as the model makes them: dt a softplus, A negative."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bsz, t, h, p))
+    dt = np.log1p(np.exp(rng.standard_normal((bsz, t, h)))) * 0.2
+    a = -np.exp(rng.standard_normal(h) * 0.5)
+    b = rng.standard_normal((bsz, t, g, n)) * 0.3
+    c = rng.standard_normal((bsz, t, g, n)) * 0.3
+    return [torch.from_numpy(v.astype(np.float32)).cuda()
+            for v in (x, dt, a, b, c)]
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 1024, 32, 64, 128, 1),      # mamba2-370m's prefill in the serve runs
+    (8, 1000, 32, 64, 128, 1),      # a ragged last chunk
+    (1, 4096, 32, 64, 128, 1),      # one long row
+    (2, 300, 16, 32, 32, 2),        # the reduced widths, two groups
+    (3, 200, 8, 64, 64, 4),
+    (2, 129, 4, 32, 128, 1),
+], ids=lambda s: "x".join(map(str, s)))
+def test_ssd_scan_matches_chunked(shape):
+    args = ssd_inputs(*shape)
+    before = ssd_scan.launches
+    got = ops.ssd(*args)
+    assert ssd_scan.launches == before + 1
+    want = ops.ssd(*args, backend="chunked")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_ssd_scan_matches_sequential():
+    args = ssd_inputs(2, 300, 8, 64, 128, 1, seed=1)
+    torch.testing.assert_close(ops.ssd(*args), ops.ssd(*args, backend="ref"),
+                               rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("quant", (None, "SINT"))
+def test_mamba_engine_launches_its_kernels(quant):
+    """A reduced f32 Mamba-2 wave on the card: one ssd_scan launch per layer
+    per prefill, two qmatmul launches per layer per forward (SINT), greedy
+    tokens equal to the plain path's."""
+    cfg = get_config("mamba2_370m").reduced().with_(dtype=torch.float32,
+                                                    quant=quant)
+    params = get_model(cfg).init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, 40 + 30 * i),
+                    max_new_tokens=6) for i in range(3)]
+    before = (ssd_scan.launches, qmatmul.launches)
+    got = Engine(get_model(cfg), params, batch_slots=4,
+                 cache_len=128).serve(reqs)
+    assert ssd_scan.launches - before[0] == cfg.n_layers
+    assert qmatmul.launches - before[1] == (2 * cfg.n_layers * 6
+                                            if quant else 0)
+    want = Engine(get_model(cfg, backend="ref"), params, batch_slots=4,
+                  cache_len=128).serve(reqs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)

@@ -1,0 +1,310 @@
+"""The port's Mamba-2 path against the JAX reference, on the CPU: the SSD
+plain versions, the reduced ``mamba2_370m`` model (REAL and §6.1-quantized)
+and the wave ``Engine``.
+
+The same params go into both packages (JAX init, bridged through numpy with
+``repro_torch.bridge``) and the same numpy inputs through both.  Tolerances,
+with their reasons:
+* SSD: the reference's own (``tests/test_kernels.py``): rtol 2e-4, atol 2e-5
+  — cumsums and products summed in other orders.
+* Model logits: the reference's own prefill/decode tolerances
+  (``tests/test_archs.py``): 2e-4 for prefill and the full forward, 2e-3 for
+  decode; states to 2e-4.
+* Engine: greedy tokens identical.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs.base import ARCH_IDS as JARCH_IDS
+from repro.configs.base import get_config as jget_config
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import mamba2 as jmamba
+from repro.models.api import get_model as jget_model
+from repro.serving.engine import Engine as JEngine
+from repro.serving.engine import Request as JRequest
+from repro.serving.engine import _truncate_eos as j_truncate_eos
+from repro_torch.bridge import params_from_numpy, params_to_numpy
+from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.kernels import ops, ref
+from repro_torch.models import mamba2
+from repro_torch.models.api import get_model
+from repro_torch.serving import Engine, Request, sample_batched
+from repro_torch.serving.engine import _truncate_eos
+
+torch.set_num_threads(1)
+
+SSD_TOL = dict(rtol=2e-4, atol=2e-5)
+PREFILL_TOL = dict(rtol=2e-4, atol=2e-4)
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+def tensors(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def ssd_inputs(bsz, t, h, p, n, g, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bsz, t, h, p))
+    dt = np.log1p(np.exp(rng.standard_normal((bsz, t, h)))) * 0.2
+    a = -np.exp(rng.standard_normal(h) * 0.5)
+    b = rng.standard_normal((bsz, t, g, n)) * 0.3
+    c = rng.standard_normal((bsz, t, g, n)) * 0.3
+    return [v.astype(np.float32) for v in (x, dt, a, b, c)]
+
+
+# ---------------------------------------------------------------------------
+# Configs
+
+
+@pytest.mark.parametrize("reduced", (False, True))
+def test_config_matches_reference(reduced):
+    want = jget_config("mamba2_370m")
+    got = get_config("mamba2_370m")
+    if reduced:
+        want, got = want.reduced(), got.reduced()
+    jfields = dataclasses.asdict(want)
+    tfields = dataclasses.asdict(got)
+    assert jfields.pop("dtype") == jnp.bfloat16
+    assert tfields.pop("dtype") == torch.bfloat16
+    assert tfields == jfields
+    assert (got.d_inner, got.ssm_heads, got.d_head) == \
+        (want.d_inner, want.ssm_heads, want.d_head)
+    assert ARCH_IDS == JARCH_IDS
+
+
+def test_unported_families_raise():
+    with pytest.raises(ValueError, match="ROADMAP item 14"):
+        get_config("qwen3_8b")
+    dense = get_config("mamba2_370m").with_(family="dense")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        get_model(dense)
+
+
+# ---------------------------------------------------------------------------
+# SSD plain versions
+
+
+@pytest.mark.parametrize("t,h,p,n,g", [(128, 2, 32, 16, 1),
+                                       (100, 4, 16, 8, 2),
+                                       (64, 8, 16, 64, 8)])
+def test_ssd_matches_reference(t, h, p, n, g):
+    """ops.ssd 'chunked', 'ref' and 'auto' (chunked on CPU tensors) against
+    the interpreted Pallas kernel and the sequential reference, with a
+    ragged T (100: both chunked versions pad it to the chunk) and G > 1."""
+    args = ssd_inputs(2, t, h, p, n, g)
+    jargs = [jnp.asarray(v) for v in args]
+    pallas = np.asarray(jops.ssd(*jargs, backend="pallas", chunk=32))
+    seq = np.asarray(jops.ssd(*jargs, backend="ref"))
+    for backend in ("chunked", "ref", "auto"):
+        got = ops.ssd(*tensors(*args), backend=backend).numpy()
+        assert got.shape == (2, t, h, p)
+        np.testing.assert_allclose(got, pallas, **SSD_TOL)
+        np.testing.assert_allclose(got, seq, **SSD_TOL)
+    with pytest.raises(ValueError, match="ssd_scan kernel has no CPU"):
+        ops.ssd(*tensors(*args), backend="kernel")
+
+
+@pytest.mark.parametrize("mapping,same_as", [
+    ({"ssd_scan": "ref"}, "ref"),
+    ({"ssd_scan": "chunked", "qmatmul": "ref"}, "chunked"),
+    ({"qmatmul": "ref"}, "auto"),
+], ids=("ssd-ref", "ssd-chunked", "ssd-unnamed"))
+def test_ssd_backend_mapping(mapping, same_as):
+    """A mapping gives each kernel its own backend, and a kernel that it
+    does not name takes 'auto': ops.ssd reads the ssd_scan entry."""
+    args = tensors(*ssd_inputs(2, 100, 4, 16, 8, 2))
+    assert torch.equal(ops.ssd(*args, backend=mapping),
+                       ops.ssd(*args, backend=same_as))
+    with pytest.raises(ValueError, match="names no kernel"):
+        ops.ssd(*args, backend={**mapping, "ssd": "ref"})
+
+
+def test_ssd_ref_functions_match_reference():
+    """The plain versions one by one: the sequential scan, the chunked scan
+    at several chunks, and the decode step, on one sequence."""
+    x, dt, a, b, c = ssd_inputs(1, 64, 4, 8, 16, 4, seed=1)
+    x, dt, b, c = x[0], dt[0], b[0], c[0]     # one sequence; G = H
+    jx = [jnp.asarray(v) for v in (x, dt, a, b, c)]
+    tx = tensors(x, dt, a, b, c)
+    seq = np.asarray(jref.ssd_scan_ref(*jx))
+    np.testing.assert_allclose(ref.ssd_scan_ref(*tx).numpy(), seq, **SSD_TOL)
+    for chunk in (16, 32, 64):
+        np.testing.assert_allclose(
+            ref.ssd_chunked_ref(*tx, chunk=chunk).numpy(),
+            np.asarray(jref.ssd_chunked_ref(*jx, chunk=chunk)), **SSD_TOL)
+    state = np.random.default_rng(2).standard_normal((4, 8, 16)) \
+        .astype(np.float32)
+    js, jy = jref.ssd_update_ref(jnp.asarray(state), jx[0][5], jx[1][5],
+                                 jx[2], jx[3][5], jx[4][5])
+    ts, ty = ref.ssd_update_ref(torch.from_numpy(state), tx[0][5], tx[1][5],
+                                tx[2], tx[3][5], tx[4][5])
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5,
+                               atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The reduced model
+
+
+def model_pair(quant, dtype="float32", seed=0):
+    """(JAX cfg, JAX params, port cfg, port params) of the reduced model."""
+    jdtype, tdtype = getattr(jnp, dtype), getattr(torch, dtype)
+    jcfg = jget_config("mamba2_370m").reduced().with_(dtype=jdtype,
+                                                      quant=quant)
+    tcfg = get_config("mamba2_370m").reduced().with_(dtype=tdtype,
+                                                     quant=quant)
+    jp = jget_model(jcfg).init(jax.random.PRNGKey(seed))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    return jcfg, jp, tcfg, tp
+
+
+def assert_close_tree(got, want, **tol):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **tol)
+
+
+@pytest.mark.parametrize("quant", (None, "SINT", "INT"))
+def test_model_matches_reference(quant):
+    """forward_logits, prefill (logits, conv and ssm states) and one decode
+    step (logits, states) against the JAX model, same params."""
+    jcfg, jp, tcfg, tp = model_pair(quant)
+    tokens = np.random.default_rng(5).integers(0, jcfg.vocab, (2, 17)) \
+        .astype(np.int32)
+    full = np.asarray(jmamba.forward_logits(jp, jcfg, jnp.asarray(tokens)))
+    got = mamba2.forward_logits(tp, tcfg, torch.from_numpy(tokens).long())
+    np.testing.assert_allclose(got.numpy(), full, **PREFILL_TOL)
+
+    japi, tapi = jget_model(jcfg), get_model(tcfg)
+    jcache, jlog = japi.prefill(jp, {"tokens": jnp.asarray(tokens[:, :16])},
+                                32)
+    tcache, tlog = tapi.prefill(
+        tp, {"tokens": torch.from_numpy(tokens[:, :16]).long()}, 32)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **PREFILL_TOL)
+    np.testing.assert_allclose(tlog.numpy()[:, 0], full[:, 15], **PREFILL_TOL)
+    assert_close_tree(tcache, jcache, **PREFILL_TOL)
+    assert tcache["conv"].dtype == torch.float32
+
+    jcache, jlog = japi.decode(jp, jcache,
+                               {"tokens": jnp.asarray(tokens[:, 16:])},
+                               jnp.int32(16))
+    arena = tapi.init_cache(2, 32, device="cpu")
+    for k in arena:
+        arena[k].copy_(tcache[k])
+    out, tlog = tapi.decode(tp, arena,
+                            {"tokens": torch.from_numpy(tokens[:, 16:])
+                             .long()}, 16)
+    assert out is arena                        # updated in place
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **DECODE_TOL)
+    np.testing.assert_allclose(tlog.numpy()[:, 0], full[:, 16], **DECODE_TOL)
+    assert_close_tree(arena, jcache, **DECODE_TOL)
+
+
+def test_init_matches_reference_tree():
+    """The port's random init gives the reference's tree: keys, shapes and
+    dtypes, bf16 and SINT."""
+    cfg = get_config("mamba2_370m").reduced().with_(quant="SINT")
+    jcfg = jget_config("mamba2_370m").reduced().with_(quant="SINT")
+    got = get_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    want = jget_model(jcfg).init(jax.random.PRNGKey(0))
+    assert list(leaves(got)) == list(leaves(want))
+    emb = got["embed"]["emb"].to(torch.float32)
+    assert 0.015 < float(emb.std()) < 0.025
+
+
+def leaves(tree, path=()):
+    """(path, shape, dtype name) of every leaf of a nested dict."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from leaves(tree[k], path + (k,))
+        else:
+            yield (path + (k,), tuple(tree[k].shape),
+                   str(tree[k].dtype).replace("torch.", ""))
+
+
+def test_bridge_bfloat16_leaves_exact():
+    """JAX bf16 leaves arrive as ml_dtypes.bfloat16 numpy arrays; the bridge
+    takes them through f32 (exact) to torch.bfloat16, and back."""
+    jcfg, jp, tcfg, tp = model_pair(None, dtype="bfloat16")
+    assert tp["embed"]["emb"].dtype == torch.bfloat16
+    assert tp["blocks"]["mixer"]["conv_w"].dtype == torch.bfloat16
+    assert tp["blocks"]["mixer"]["dt_bias"].dtype == torch.float32
+    assert tp["blocks"]["mixer"]["in_proj"]["w"].shape[0] == jcfg.n_layers
+    back = params_to_numpy(tp)
+    np.testing.assert_array_equal(
+        back["blocks"]["mixer"]["in_proj"]["w"],
+        np.asarray(jp["blocks"]["mixer"]["in_proj"]["w"], np.float32))
+    np.testing.assert_array_equal(back["embed"]["emb"],
+                                  np.asarray(jp["embed"]["emb"], np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The wave engine
+
+
+def requests(vocab, n, cls, seed=0):
+    rng = np.random.default_rng(seed)
+    return [cls(uid=i, prompt=rng.integers(0, vocab, 5 + 4 * i)
+                .astype(np.int32), max_new_tokens=3 + i % 3)
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("quant,n_requests", [(None, 3), ("SINT", 5)])
+def test_engine_greedy_tokens_match_reference(quant, n_requests):
+    """A reduced f32 wave (or two) in 4 slots: the same greedy tokens as the
+    JAX Engine; the port's arena keeps its storage across waves."""
+    jcfg, jp, tcfg, tp = model_pair(quant)
+    want = JEngine(jget_model(jcfg), jp, batch_slots=4,
+                   cache_len=32).serve(requests(jcfg.vocab, n_requests,
+                                                JRequest))
+    engine = Engine(get_model(tcfg), tp, batch_slots=4, cache_len=32,
+                    device="cpu")
+    arena = {k: v.data_ptr() for k, v in engine.cache.items()}
+    got = engine.serve(requests(tcfg.vocab, n_requests, Request))
+    assert [c.uid for c in got] == [c.uid for c in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+        assert g.prefill_s > 0 and g.decode_s > 0 and g.finished_s > 0
+    assert {k: v.data_ptr() for k, v in engine.cache.items()} == arena
+
+
+def test_engine_wave_limits():
+    _, _, tcfg, tp = model_pair(None)
+    engine = Engine(get_model(tcfg), tp, batch_slots=2, cache_len=8,
+                    device="cpu")
+    with pytest.raises(ValueError, match="overflow the cache"):
+        engine.run_wave([Request(0, np.zeros(6, np.int32), 4)])
+    with pytest.raises(ValueError, match="a wave holds"):
+        engine.run_wave([Request(i, np.zeros(2, np.int32), 2)
+                         for i in range(3)])
+
+
+def test_sample_batched_and_eos():
+    """Greedy rows take the argmax; a hot row draws from its own tempered
+    distribution with the engine's generator (reproducibly)."""
+    logits = torch.log(torch.tensor([[0.1, 0.7, 0.2], [0.5, 0.2, 0.3],
+                                     [0.2, 0.2, 0.6]]))
+    temps = torch.tensor([0.0, 1.0, 0.0])
+    draws = torch.stack([sample_batched(logits, temps,
+                                        torch.Generator().manual_seed(s))
+                         for s in range(400)])
+    assert (draws[:, 0] == 1).all() and (draws[:, 2] == 2).all()
+    freq = torch.bincount(draws[:, 1], minlength=3).float() / 400
+    assert torch.allclose(freq, torch.tensor([0.5, 0.2, 0.3]), atol=0.08)
+    assert torch.equal(sample_batched(logits, torch.zeros(3), None),
+                       torch.tensor([1, 0, 2]))
+    toks = np.array([4, 7, 9, 7, 1])
+    for eos in (None, 7, 3):
+        np.testing.assert_array_equal(_truncate_eos(toks, eos),
+                                      j_truncate_eos(toks, eos))
