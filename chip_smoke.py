@@ -14,7 +14,10 @@ stdout; a failing phase raises and the script exits non-zero:
              the §7 classifier and autoencoder stacks in REAL/SINT/INT/DINT at
              M = 1024, 1000 and 37 (fused_mlp); the four classifier SINT
              layer shapes, and mamba2-370m's two SINT projections at
-             M = 8 x 1024 (prefill) and M = 8 (decode) (qmatmul); the
+             M = 8 x 1024 (prefill) and M = 8 (decode), and untimed checks
+             on both sides of its path switch (M = 8, 63, 64, 65, 1000 at
+             K x N = 400 x 64, 256 x 4384, 256 x 1024, 16 x 2, and an
+             operand off 16-byte alignment) (qmatmul); the
              four-head §7 fleet (classifier, autoencoder, margin trunk,
              forecaster) in the four schemes at M = 1024, 1000 and 37 per
              group, a fleet whose classifier ends
@@ -24,7 +27,9 @@ stdout; a failing phase raises and the script exits non-zero:
              (784 inputs padded to 7 x 128, 512 units) at M = 8 and 1024,
              sparsities 0/0.25/0.5/0.75 in (128, 128) blocks and 0.5 in
              (64, 64), plus an all-zero weight and a block-column pruned
-             whole (sparse_matmul); mamba2-370m's SSD widths (H 32, P 64,
+             whole, and untimed checks at M = 1, 32, 33, each also
+             bit-equal over two calls (sparse_matmul); mamba2-370m's SSD
+             widths (H 32, P 64,
              N 128, G 1) at B 8 x T 1024 (the serve runs' prefill), a ragged
              T 1000 and one B 1 x T 32768 row against the chunked plain
              version (T zero-padded to the kernel's chunk), and B 2 x T 256
@@ -40,7 +45,11 @@ stdout; a failing phase raises and the script exits non-zero:
              ``call_ms`` the time per call through the Python wrapper, back
              to back (CUDA events), which the host's launch cost can bound;
              ``library_ms`` (sparse_matmul) one torch.matmul on the dense
-             weight, TF32 off.
+             weight, TF32 off, per call back to back (CUDA events), and
+             ``library_device_ms`` its device time (every kernel it
+             launches; calls replayed from a CUDA graph); ``int_mm_ms`` (qmatmul, prefill
+             shapes) one torch._int_mm on the same codes: the int32
+             product alone, no epilogue, a yardstick.
 4. serve   — a 1024-plant fleet (the 128-plant scenario fleet tiled 8x)
              through StreamEngine, warmup + 400 scan cycles (21 verdict
              steps) per run: (a) SINT classifier, fused; (b) REAL classifier;
@@ -88,7 +97,8 @@ stdout; a failing phase raises and the script exits non-zero:
              without the throwaway session: kernel counts reported, not
              checked (see drain_profiler).
 
-Then the kernels summary line (``{"kernels": [...]}``, launch counts from
+Then the wall seconds of each phase and in all (``{"phase": "seconds"}``),
+the kernels summary line (``{"kernels": [...]}``, launch counts from
 the main-path runs), the nvidia-smi line and, last, ``{"ok": true,
 "device": ...}``.
 """
@@ -116,6 +126,9 @@ GROUPS, GROUP_TILE = ("clf", "ae", "mg", "fc"), 32    # 4 x 1024 plants
 DEVICE = "cuda"
 # The §6.2 pruned layer's batches: the pruning bench's 8, and 1024.
 PRUNE_MS = (8, 1024)
+# Batches checked but not timed: the small-M path's ends and the first
+# large-M batch (sparse_matmul.plan switches above 32).
+PRUNE_CHECK_MS = (1, 32, 33)
 # ssd_scan shapes (B, T) at the Mamba-2 config's widths.
 SSD_SHAPES = {"prefill": (8, 1024), "ragged": (8, 1000), "long": (1, 32768),
               "vs_sequential": (2, 256)}
@@ -196,6 +209,30 @@ def kernel_ms(fn, reps, name):
 
     times = [us for n, us in device_events(calls) if name in n]
     return sum(times) / len(times) / 1e3 if times else None
+
+
+def graph_ms(fn, reps):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed, so the host's cost to issue a call drops out and
+    every kernel a call launches counts (a library call may launch more
+    than one)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def nbytes(*tensors):
@@ -323,6 +360,15 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
+    started = last = time.perf_counter()
+    seconds = {}
+
+    def phase_done(name):
+        """Wall seconds since the previous phase ended."""
+        nonlocal last
+        now = time.perf_counter()
+        seconds[name] = now - last
+        last = now
     card_gen = torch.Generator(device=dev)
 
     # -- 1. device ----------------------------------------------------------
@@ -332,6 +378,7 @@ def main():
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    phase_done("device")
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     reports = build.build()
@@ -399,6 +446,7 @@ def main():
         tgt[3, :, :spec.N_FEATURES] = x[3, :, -spec.N_FEATURES:]
         return tgt
 
+    phase_done("build")
     # -- 3. kernels vs their plain versions ---------------------------------
     fused_rows, fused_err = [], 0.0
     for name, builder in (("detector", build_detector),
@@ -569,10 +617,45 @@ def main():
                "call_ms": time_ms(lambda: qmatmul.qmatmul(xq, wq, scale),
                                   10),
                "plain_ms": time_ms(lambda: ref.qmatmul_ref(xq, wq, scale),
-                                   3)}
+                                   3),
+               "path": qmatmul.path(m)}
         row["bound_ms"], row["bound_by"] = qmatmul_bound(xq, wq, scale, None)
+        if row["step"] == "prefill":
+            # A yardstick, not a library_ms: torch._int_mm gives the int32
+            # product alone, with no dequantization epilogue.
+            row["int_mm_ms"] = time_ms(lambda: torch._int_mm(xq, wq), 10)
+            row["int_mm_is"] = "int32 product only, no epilogue"
         q_rows.append(row)
         emit({"phase": "kernels", "kernel": "qmatmul", **row})
+
+    # qmatmul on both sides of its path switch (M >= 64: tensor cores), at a
+    # fleet width, at mamba2-370m's two widths with K cut to 256 (N 4384
+    # keeps its ragged last tile), at N = 2, and from an operand one byte
+    # off 16-byte alignment (the byte-wise instances): all torch.equal.
+    for (k, n), m in itertools.product(
+            ((400, 64), (256, 4384), (256, 1024), (16, 2)),
+            (8, 63, 64, 65, 1000)):
+        card_gen.manual_seed(k * n + m)
+        xq = torch.randint(-127, 128, (m, k), generator=card_gen,
+                           device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, n), generator=card_gen,
+                           device=dev, dtype=torch.int8)
+        scale = torch.rand(n, generator=card_gen, device=dev) * 1e-3
+        bias = torch.randn(n, generator=card_gen, device=dev)
+        cases = [("aligned", xq)]
+        if (k, n) == (256, 4384):
+            shifted = torch.empty(m * k + 1, dtype=torch.int8, device=dev)
+            shifted[1:] = xq.reshape(-1)
+            cases.append(("unaligned", shifted[1:].view(m, k)))
+        for what, operand in cases:
+            if not torch.equal(qmatmul.qmatmul(operand, wq, scale, bias),
+                               ref.qmatmul_ref(xq, wq, scale, bias)):
+                raise AssertionError(f"qmatmul ({m}, {k}, {n}) {what}: "
+                                     "kernel disagrees with the plain "
+                                     "version")
+            emit({"phase": "kernels", "kernel": "qmatmul", "case": what,
+                  "m": m, "k": k, "n": n, "path": qmatmul.path(m),
+                  "max_abs_err": 0.0})
 
     # sparse_matmul: the §6.2 pruned layer, its 784 inputs padded to whole
     # 128-blocks as benchmarks/pruning_bench.py pads them.
@@ -612,12 +695,29 @@ def main():
                             + [(0.5, (64, 64))]):
         w = prune_weight(sparsity, block, seed=5)
         dense = w.to_dense()
+        for m in PRUNE_CHECK_MS:
+            # Both sides of the small-M switch, untimed; and the same bits
+            # from a second call (no atomics).
+            x = prune_input(m)
+            err, _ = check_sparse(f"{block} s={sparsity} M={m}", x, w,
+                                  ref.sparse_matmul_ref(x, w))
+            s_err = max(s_err, err)
+            if not torch.equal(sparse_matmul.sparse_matmul(x, w),
+                               sparse_matmul.sparse_matmul(x, w)):
+                raise AssertionError(f"sparse_matmul {block} s={sparsity} "
+                                     f"M={m}: two calls differ")
+            emit({"phase": "kernels", "kernel": "sparse_matmul",
+                  "case": "check", "block": list(block),
+                  "sparsity": sparsity, "m": m,
+                  "path": sparse_matmul.plan(m, w).path,
+                  "max_abs_err": err, "deterministic": True})
         for m in PRUNE_MS:
             x = prune_input(m)
             err, dead_cols = check_sparse(f"{block} s={sparsity} M={m}", x,
                                           w, ref.sparse_matmul_ref(x, w))
             s_err = max(s_err, err)
             row = {"block": list(block), "sparsity": sparsity, "m": m,
+                   "path": sparse_matmul.plan(m, w).path,
                    "k": k_pad, "n": n_out, "nnz_blocks": w.nnz_blocks,
                    "pruned_block_columns": dead_cols, "max_abs_err": err,
                    "ms": kernel_ms(lambda: sparse_matmul.sparse_matmul(x, w),
@@ -627,7 +727,9 @@ def main():
                    "plain_ms": time_ms(lambda: ref.sparse_matmul_ref(x, w),
                                        20),
                    "library_ms": time_ms(lambda: torch.matmul(x, dense),
-                                         200)}
+                                         200),
+                   "library_device_ms": graph_ms(
+                       lambda: torch.matmul(x, dense), 20)}
             row["bound_ms"], row["bound_by"] = sparse_bound(x, w)
             row["bound_us"] = row["bound_ms"] * 1e3
             s_rows.append(row)
@@ -692,6 +794,7 @@ def main():
         emit({"phase": "kernels", "kernel": "ssd_scan", **row})
         del args, got, want
 
+    phase_done("kernels")
     # -- 4. serve: the 1024-plant fleet -------------------------------------
     def drive(engine):
         outs, verdicts = [], []
@@ -901,6 +1004,7 @@ def main():
                              "megakernel and the per-group path")
     same_outputs("(f) vs (h)", "SINT", mega[1], per_group[1])
 
+    phase_done("serve_fleet")
     # -- 5. profile: where a serving step's device time goes ----------------
     def profile(run, engine, fleet_readings_, kernel, late=False):
         def ten_steps():
@@ -940,6 +1044,7 @@ def main():
             "grouped_mlp_kernel")
 
 
+    phase_done("profile")
     # -- 6. prune: the §6.2 pruned layer's path ------------------------------
     card_gen.manual_seed(0)
     w_layer = torch.randn((k_pad, n_out), generator=card_gen, device=dev)
@@ -969,6 +1074,7 @@ def main():
               "of_blocks": total, "launches": 1,
               "max_abs_err": float((got - want).abs().max())})
 
+    phase_done("prune")
     # -- 7. serve: mamba2-370m at full width through the wave Engine --------
     rng = np.random.default_rng(7)
     prompts = rng.integers(0, mcfg.vocab, (MAMBA_BATCH, MAMBA_PROMPT))
@@ -1088,6 +1194,7 @@ def main():
         if v == 0:
             raise AssertionError(f"{k} was never launched on the main path")
 
+    phase_done("serve_mamba2")
     # -- 8. profile: one prefill of (i), 8 x 1024 tokens, 48 layers ---------
     api, params = profiled_mamba
     api.prefill(params, prompt_batch, cache_len)
@@ -1116,6 +1223,7 @@ def main():
           "top_device_us": sorted(by_name.items(),
                                   key=lambda kv: -kv[1])[:12]})
 
+    phase_done("profile_mamba2")
     # -- 9. late profile: (a) and (f) as in phase 5, after the Mamba-2 runs
     # and without the throwaway session; reported, not checked (see
     # drain_profiler).
@@ -1123,6 +1231,10 @@ def main():
             late=True)
     profile("f_sint_fleet_mega_adaptive", profiled_fleet, grouped_readings,
             "grouped_mlp_kernel", late=True)
+
+    phase_done("late_profile")
+    emit({"phase": "seconds", "total": time.perf_counter() - started,
+          **seconds})
 
     # -- summary ------------------------------------------------------------
     def ms(row):
@@ -1191,6 +1303,7 @@ def main():
          "call_ms": s_head["call_ms"], "plain_ms": s_head["plain_ms"],
          "bound_ms": s_head["bound_ms"], "bound_us": s_head["bound_us"],
          "bound_by": s_head["bound_by"], "library_ms": s_head["library_ms"],
+         "library_device_ms": s_head["library_device_ms"],
          "shape": f"§6.2 layer {k_pad}x{n_out} ({n_in} inputs padded), "
                   "M=8, half of its (128, 128) blocks pruned",
          "timed": s_rows},

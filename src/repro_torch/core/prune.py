@@ -57,6 +57,29 @@ def block_magnitude_prune(
     return (blocks * mask).reshape(n, m)
 
 
+def run_pieces(offsets: np.ndarray) -> np.ndarray:
+    """The large-M block-sparse kernel's work list: each block-column's run
+    of tiles (``offsets[c]:offsets[c + 1]`` in column order) cut into
+    pieces of near-equal length, at most ``ceil(nnz / (2 n_cols))`` tiles
+    each, so that a column with a long run does not set the kernel's time.
+    An empty run is one empty piece (its blocks write zeros).
+
+    Returns (n_pieces, 5) int32 rows ``(column, first tile, end tile,
+    the column's first piece, the column's piece count)``, columns in
+    order, pieces in run order.  The kernel sums a column's pieces in that
+    order (csrc/sparse_matmul.cu)."""
+    counts = np.diff(offsets)
+    n_cols = len(counts)
+    most = max(1, -(-int(offsets[-1]) // (2 * n_cols)))
+    pieces = []
+    for c in range(n_cols):
+        k = max(1, -(-int(counts[c]) // most))
+        bounds = offsets[c] + (int(counts[c]) * np.arange(k + 1)) // k
+        first = len(pieces)
+        pieces += [(c, bounds[i], bounds[i + 1], first, k) for i in range(k)]
+    return np.asarray(pieces, np.int32).reshape(-1, 5)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockSparseWeight:
     """Plan-time representation consumed by the block-sparse kernel.
@@ -68,7 +91,8 @@ class BlockSparseWeight:
     output block-column (then block-row); ``col_rows``, each sorted tile's
     block-row; ``col_offsets``, where each block-column's run of tiles starts
     in that order (``n_col_blocks + 1`` entries; an empty run is a
-    block-column pruned whole).  No index crosses from the host per call.
+    block-column pruned whole); ``col_pieces``, the large-M kernel's work
+    list (:func:`run_pieces`).  No index crosses from the host per call.
     """
 
     values: torch.Tensor       # (nnz_blocks, bk, bn)
@@ -78,6 +102,7 @@ class BlockSparseWeight:
     col_values: torch.Tensor = dataclasses.field(init=False, repr=False)
     col_rows: torch.Tensor = dataclasses.field(init=False, repr=False)
     col_offsets: torch.Tensor = dataclasses.field(init=False, repr=False)
+    col_pieces: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         indices = np.asarray(self.indices, np.int32).reshape(-1, 2)
@@ -104,6 +129,8 @@ class BlockSparseWeight:
             indices[order, 0].copy(), dtype=torch.int32, device=dev))
         object.__setattr__(self, "col_offsets", torch.as_tensor(
             offsets, dtype=torch.int32, device=dev))
+        object.__setattr__(self, "col_pieces", torch.as_tensor(
+            run_pieces(offsets), dtype=torch.int32, device=dev))
 
     @property
     def nnz_blocks(self) -> int:

@@ -4,7 +4,8 @@ Replaces ``src/repro/kernels/qmatmul.py::qmatmul`` (the Pallas TPU kernel).
 The kernel is ``csrc/qmatmul.cu``; see its header for the design and what
 bounds it.  :func:`qmatmul` launches it on CUDA tensors only and raises on
 anything else — ``ops.quantized_matmul`` owns the ``backend`` contract and
-the plain version (``ref.qmatmul_ref``).
+the plain version (``ref.qmatmul_ref``).  :func:`path` picks the kernel's
+path from M.
 """
 
 from __future__ import annotations
@@ -20,12 +21,20 @@ from repro_torch.kernels import build
 # Kernel launches since import (or since a caller last reset it): the proof
 # that a serving path really went through the kernel.
 launches = 0
+# The least M that takes the int8 tensor-core path (one wgmma is 64 rows).
+TENSOR_CORE_M = 64
+
+
+def path(m: int) -> str:
+    """``"tensor_cores"`` (wgmma, 128 x 128 tiles) for M >= 64, else
+    ``"stream"`` (the weight-streaming kernel for decode-sized M)."""
+    return "tensor_cores" if m >= TENSOR_CORE_M else "stream"
 
 
 @functools.cache
 def _entry():
     fn = build.library("qmatmul").qmatmul_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -74,7 +83,8 @@ def qmatmul(xq: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
         return out
     err = _entry()(xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
                    None if bias is None else bias.data_ptr(), out.data_ptr(),
-                   m, n, k, torch.cuda.current_stream(dev).cuda_stream)
+                   m, n, k, path(m) == "tensor_cores",
+                   torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"qmatmul launch failed: CUDA error {err}")
     launches += 1

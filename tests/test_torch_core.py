@@ -29,7 +29,7 @@ from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.core import layers as TL
 from repro_torch.core import quantize as tquant
 from repro_torch.core import sequential as tsequential
-from repro_torch.kernels import fused_mlp, ops
+from repro_torch.kernels import fused_mlp, ops, qmatmul
 from repro_torch.sim import build_autoencoder, build_detector
 
 torch.set_num_threads(1)
@@ -297,6 +297,23 @@ def test_quantized_matmul_matches_reference_and_pallas_kernel():
     np.testing.assert_array_equal(
         no_bias.numpy(), np.asarray(jref.qmatmul_ref(args[0], args[1],
                                                      scale[0])))
+
+
+@pytest.mark.parametrize("m", (1, 8, 63, 64, 65, 1000))
+def test_qmatmul_path_switch_and_plain_version(m):
+    """The kernel's path from M (``qmatmul.path``: int8 tensor cores from
+    one wgmma's 64 rows, the weight-streaming kernel below), and the plain
+    version on either side, bit-exact against the reference's."""
+    assert qmatmul.path(m) == ("tensor_cores" if m >= 64 else "stream")
+    rng = np.random.default_rng(m)
+    xq = rng.integers(-127, 128, (m, 48)).astype(np.int8)
+    wq = rng.integers(-127, 128, (48, 20)).astype(np.int8)
+    scale = (rng.random(20) * 1e-3).astype(np.float32)
+    bias = rng.standard_normal(20).astype(np.float32)
+    got = ops.quantized_matmul(torch.from_numpy(xq), torch.from_numpy(wq),
+                               torch.from_numpy(scale), torch.from_numpy(bias))
+    want = jref.qmatmul_ref(*(jnp.asarray(a) for a in (xq, wq, scale, bias)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_kernel_backend_raises_on_cpu_tensors():

@@ -128,20 +128,51 @@ def test_fused_mlp_binary_step_sint():
     assert 0.2 < float(hidden.mean()) < 0.8      # both sides of the step
 
 
-@pytest.mark.parametrize("m", (1024, 37))
-@pytest.mark.parametrize("k,n", ((400, 64), (64, 32), (32, 16), (16, 2)))
-def test_qmatmul_matches_plain(k, n, m):
-    g = torch.Generator().manual_seed(k * n + m)
+def qmatmul_operands(m, k, n, seed):
+    g = torch.Generator().manual_seed(seed)
     xq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).cuda()
     wq = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8).cuda()
     scale = (torch.rand(n, generator=g) * 1e-3).cuda()
     bias = torch.randn(n, generator=g).cuda()
+    return xq, wq, scale, bias
+
+
+# M on both sides of the tensor-core switch (qmatmul.path: M >= 64).
+@pytest.mark.parametrize("m", (1024, 1000, 65, 64, 63, 37, 8))
+@pytest.mark.parametrize("k,n", ((400, 64), (64, 32), (32, 16), (16, 2)))
+def test_qmatmul_matches_plain(k, n, m):
+    xq, wq, scale, bias = qmatmul_operands(m, k, n, k * n + m)
     before = qmatmul.launches
     got = ops.quantized_matmul(xq, wq, scale, bias)
     assert qmatmul.launches == before + 1
     check("SINT", got, ref.qmatmul_ref(xq, wq, scale, bias))
     check("SINT", ops.quantized_matmul(xq, wq, scale),
           ref.qmatmul_ref(xq, wq, scale))
+
+
+@pytest.mark.parametrize("m", (1000, 64, 63, 8))
+@pytest.mark.parametrize("n", (4384, 1024))
+def test_qmatmul_mamba_widths(n, m):
+    """mamba2-370m's in_proj and out_proj widths (N 4384 = 34 x 128 + 32:
+    a ragged last tile) with K cut to 256, on both paths."""
+    xq, wq, scale, bias = qmatmul_operands(m, 256, n, n + m)
+    check("SINT", qmatmul.qmatmul(xq, wq, scale, bias),
+          ref.qmatmul_ref(xq, wq, scale, bias))
+    check("SINT", qmatmul.qmatmul(xq, wq, scale),
+          ref.qmatmul_ref(xq, wq, scale))
+
+
+@pytest.mark.parametrize("m", (1000, 8))
+def test_qmatmul_unaligned_operands(m):
+    """Operands that are not 16-byte aligned (a view one byte into its
+    storage) take the byte-wise instance of either path."""
+    xq, wq, scale, bias = qmatmul_operands(m, 256, 4384, m)
+    shifted = torch.empty(m * 256 + 1, dtype=torch.int8, device="cuda")
+    shifted[1:] = xq.reshape(-1)
+    xs = shifted[1:].view(m, 256)
+    assert xs.data_ptr() % 16 and xs.is_contiguous()
+    check("SINT", qmatmul.qmatmul(xs, wq, scale, bias),
+          ref.qmatmul_ref(xq, wq, scale, bias))
 
 
 def test_qmatmul_takes_int8_only():
@@ -289,7 +320,8 @@ def pruned_layer(sparsity, block, seed=0):
         prune.block_magnitude_prune(w.cuda(), sparsity, block), block)
 
 
-@pytest.mark.parametrize("m", (8, 1024, 37))
+# M on both sides of the small-M switch (sparse_matmul.plan: M <= 32).
+@pytest.mark.parametrize("m", (8, 1024, 37, 1, 33))
 @pytest.mark.parametrize("sparsity,block", [(s, (128, 128)) for s in
                                             (0.0, 0.25, 0.5, 0.75)]
                          + [(0.5, (64, 64))])
@@ -306,6 +338,43 @@ def test_sparse_matmul_matches_plain(sparsity, block, m):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     dead = (w.to_dense() == 0).all(dim=0)
     assert (got[:, dead] == 0).all()
+
+
+@pytest.mark.parametrize("m", (8, 1024))
+@pytest.mark.parametrize("block", ((128, 128), (64, 64)))
+def test_sparse_matmul_is_deterministic(block, m):
+    """Partial sums are combined in a fixed order, without atomics: two
+    calls on the same inputs give the same bits."""
+    w = pruned_layer(0.5, block)
+    x = torch.randn((m, 896), generator=torch.Generator().manual_seed(m)) \
+        .cuda()
+    first = sparse_matmul.sparse_matmul(x, w)
+    second = sparse_matmul.sparse_matmul(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_sparse_matmul_on_two_streams():
+    """The large path's split-run counters belong to a stream: two weights
+    with split runs, called back to back at M = 1024 on two streams, both
+    match the plain version."""
+    weights = [pruned_layer(0.5, (128, 128), seed=1),
+               pruned_layer(0.25, (128, 128), seed=2)]
+    assert all(len(w.col_pieces) > w.shape[1] // w.block[1] for w in weights)
+    x = torch.randn((1024, 896), generator=torch.Generator().manual_seed(7)) \
+        .cuda()
+    streams = [torch.cuda.Stream() for _ in weights]
+    for stream in streams:
+        stream.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for _ in range(3):
+        for w, stream in zip(weights, streams):
+            with torch.cuda.stream(stream):
+                outs.append((w, sparse_matmul.sparse_matmul(x, w)))
+    torch.cuda.synchronize()
+    for w, got in outs:
+        torch.testing.assert_close(got, ref.sparse_matmul_ref(x, w),
+                                   rtol=1e-4, atol=1e-4)
 
 
 def test_sparse_matmul_pruned_column_and_all_zero():

@@ -19,7 +19,7 @@ from repro.core import prune as jprune
 from repro.kernels.sparse_matmul import sparse_matmul as jsparse_matmul
 from repro_torch.configs import icsml_mlp
 from repro_torch.core import prune
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sparse_matmul
 from test_torch_core import small_pair
 
 torch.set_num_threads(1)
@@ -99,6 +99,94 @@ def test_pruned_column_and_all_zero_weight():
     assert tz.nnz_blocks == jz.nnz_blocks == 1
     np.testing.assert_array_equal(tz.indices, jz.indices)
     assert (ops.sparse_dense(torch.from_numpy(x[:, :128]), tz) == 0).all()
+
+
+def run_plan(x, tbs, launch):
+    """Walk ``launch``'s grid as the kernel does, in numpy.  Small path:
+    block (bx, by) sums its block-column's whole run for its rows and
+    columns.  Large path: block (bx, by) sums one piece of the work list,
+    and a column's pieces are added in piece order.  Returns the output,
+    how many blocks wrote each element, and how often each (tile, output
+    element) product was taken."""
+    (m, _), (bk, bn), n = x.shape, tbs.block, tbs.shape[1]
+    offsets, pieces = tbs.col_offsets.numpy(), tbs.col_pieces.numpy()
+    rows, values = tbs.col_rows.numpy(), tbs.col_values.numpy()
+    out = np.zeros((m, n), np.float32)
+    writes = np.zeros((m, n), np.int64)
+    uses = np.zeros((len(values), m, n), np.int64)
+    gx, gy = launch.grid
+    slices = bn // launch.cols
+    for bx in range(gx):
+        if launch.path == "small":
+            col = bx * launch.cols
+            cb, c0 = divmod(col, bn)
+            first, count, runs = None, 1, [(offsets[cb], offsets[cb + 1])]
+        else:
+            piece, s = divmod(bx, slices)
+            cb, t0, t1, first, count = pieces[piece]
+            c0 = s * launch.cols
+            col, runs = cb * bn + c0, [(t0, t1)]
+        assert c0 + launch.cols <= bn        # a slice of one block-column
+        if first is not None and piece != first + count - 1:
+            continue                  # the column's last piece adds them all
+        if first is not None:
+            runs = [tuple(pieces[p][1:3]) for p in range(first, first + count)]
+        cols = slice(col, col + launch.cols)
+        for by in range(gy):
+            r = slice(by * launch.rows, min((by + 1) * launch.rows, m))
+            acc = np.zeros((r.stop - r.start, launch.cols), np.float32)
+            for t0, t1 in runs:
+                for t in range(t0, t1):
+                    acc += x[r, rows[t] * bk:(rows[t] + 1) * bk] \
+                        @ values[t][:, c0:c0 + launch.cols]
+                    uses[t, r, cols] += 1
+            out[r, cols] = acc
+            writes[r, cols] += 1
+    return out, writes, uses
+
+
+@pytest.mark.parametrize("m", (1, 8, 32, 33, 1024))
+@pytest.mark.parametrize("block", BLOCKS)
+@pytest.mark.parametrize("sparsity", (0.0, 0.6))
+def test_sparse_plan_covers_each_output_once(sparsity, block, m):
+    """The kernel's schedule (``sparse_matmul.plan``, the work list
+    ``col_pieces``): the small path up to M = 32; every output element
+    written by exactly one block; every nonzero tile's product taken
+    exactly once for each output element of its block-column, and none for
+    another column.  Walked in numpy, it matches the reference's plain
+    product within 1e-4."""
+    jbs, tbs = pruned_pair(sparsity, block)
+    launch = sparse_matmul.plan(m, tbs)
+    assert launch.path == ("small" if m <= 32 else "large")
+    x = normal((m, tbs.shape[0]), 5)
+    got, writes, uses = run_plan(x, tbs, launch)
+    assert (writes == 1).all()
+    bn = tbs.block[1]
+    for t, c in enumerate(np.repeat(np.arange(tbs.shape[1] // bn),
+                                    np.diff(tbs.col_offsets.numpy()))):
+        in_col = np.zeros(tbs.shape[1], bool)
+        in_col[c * bn:(c + 1) * bn] = True
+        assert (uses[t][:, in_col] == 1).all()
+        assert (uses[t][:, ~in_col] == 0).all()
+    np.testing.assert_allclose(got, np.asarray(jnp.asarray(x)
+                                               @ jbs.to_dense()),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_run_pieces_balance_long_runs():
+    """The work list cuts each run into near-equal pieces of at most
+    ceil(nnz / (2 n_cols)) tiles, in run order; an empty run is one empty
+    piece."""
+    pieces = prune.run_pieces(np.array([0, 5, 5, 9, 12]))
+    most = -(-12 // 8)
+    np.testing.assert_array_equal(pieces[:, 0], [0, 0, 0, 1, 2, 2, 3, 3])
+    assert ((pieces[:, 2] - pieces[:, 1]) <= most).all()
+    for c, start, end in ((0, 0, 5), (1, 5, 5), (2, 5, 9), (3, 9, 12)):
+        mine = pieces[pieces[:, 0] == c]
+        assert mine[0, 1] == start and mine[-1, 2] == end
+        np.testing.assert_array_equal(mine[1:, 1], mine[:-1, 2])
+        assert (mine[:, 3] == np.flatnonzero(pieces[:, 0] == c)[0]).all()
+        assert (mine[:, 4] == len(mine)).all()
 
 
 @pytest.mark.parametrize("shape,indices,values_shape", [
