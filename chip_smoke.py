@@ -32,15 +32,23 @@ stdout; a failing phase raises and the script exits non-zero:
              widths (H 32, P 64,
              N 128, G 1) at B 8 x T 1024 (the serve runs' prefill), a ragged
              T 1000 and one B 1 x T 32768 row against the chunked plain
-             version (T zero-padded to the kernel's chunk), and B 2 x T 256
-             against the sequential recurrence (ssd_scan).  SINT must be
+             version (T zero-padded to its chunk), and B 2 x T 256
+             against the sequential recurrence, the final state at every
+             shape against ref.ssd_final_state_ref, and at the prefill
+             shape bf16 views of a conv output bit-equal to the same call
+             on f32 copies and held to the plain versions on the same
+             views (ssd_scan).  SINT must be
              torch.equal (grouped: the logit lanes; score lanes,
              reductions summed in another order, within 1e-5 relative);
              REAL within 1e-5 (and the softmax fleet); DINT within 1e-4;
              INT within 1e-3 (a last-bit difference ahead of a requantize
              can move an INT code by one step); sparse_matmul within 1e-4
              with pruned columns exactly 0; ssd_scan within rtol 2e-4 /
-             atol 2e-5 (the reference's own tolerance).
+             atol 2e-5 (the reference's own tolerance), y and state.
+             ``bound_ms`` of ssd_scan is the redesigned kernel's on f32
+             inputs, ``bf16_views_bound_ms`` on the bf16 views (ssd_bound);
+             ``cuda_core_bound_ms`` the bound of the earlier CUDA-core
+             kernel (ssd_cuda_core_bound).
              ``ms`` is the kernel's device time from torch.profiler;
              ``call_ms`` the time per call through the Python wrapper, back
              to back (CUDA events), which the host's launch cost can bound;
@@ -92,7 +100,8 @@ stdout; a failing phase raises and the script exits non-zero:
              Launches checked: 48 ssd_scan per prefill, 96 qmatmul per
              forward for SINT, nothing else.
 8. profile — one prefill of (i) under torch.profiler: device busy share,
-             device time by kernel, 48 ssd_scan kernels.
+             device time by kernel, 48 ssd_scan kernels, and no state
+             kernel (scan, cumsum, flip) outside ssd_scan.
 9. late_profile — phase 5's sessions again, now after the Mamba-2 runs and
              without the throwaway session: kernel counts reported, not
              checked (see drain_profiler).
@@ -119,6 +128,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12          # float32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12        # TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12        # bf16 on the tensor cores
 TOL = {"REAL": 1e-5, "INT": 1e-3, "DINT": 1e-4}
 SCHEMES = ("REAL", "SINT", "INT", "DINT")
 N_PLANTS, TILE, N_CYCLES = 128, 8, 400
@@ -190,7 +201,8 @@ def drain_profiler():
     saw.  On an H100, sessions opened after phases 7-8 lost a few device
     records each, fleet kernels among them (phase 9 reports how many), with
     ``acc_events=True`` as without.  Opened in
-    phase 5, after this throwaway session, they lost none, and the
+    phase 5, after this throwaway session, they lost none in most runs (one
+    run lost one fused_mlp record there, and the phase failed), and the
     throwaway session saw no events.  So phase 5 runs before the Mamba-2
     phases.  The cause is not known: the count is reported so that a
     recurrence shows."""
@@ -296,23 +308,52 @@ def sparse_bound(x, w):
     return bound(moved, 2 * m * bk * bn * w.nnz_blocks / F32_FLOPS_PER_S)
 
 
-def ssd_bound(x, dt, a, b, c, chunk):
-    """Bytes: every input read once, y written once.  Operations: the
-    chunked algorithm's f32 products as this run's T needs them — per chunk
-    of l steps the causal halves of C Bᵀ and of (decay ∘ C Bᵀ) x
-    ((N + P) l (l + 1)), the readout of the carried state (2 l N P, not in
-    the first chunk: the state is 0) and the state update (2 l N P, not
-    after the last chunk) — per (batch row, head)."""
-    bsz, t, h, p = x.shape
-    n = b.shape[-1]
+def _ssd_flops(t, chunk, p, n, last_update):
+    """The chunked algorithm's products for one (batch row, head) as a T of
+    ``t`` needs them, as (C Bᵀ, the rest): per chunk of l steps the causal
+    halves of C Bᵀ (N l (l + 1)) and of (decay ∘ C Bᵀ) x (P l (l + 1)), the
+    readout of the carried state (2 l N P, not in the first chunk: the
+    state is 0) and the state update (2 l N P; after the last chunk only if
+    ``last_update``)."""
     starts = range(0, t, chunk)
-    ops_ = 0
+    cb = rest = 0
     for i, t0 in enumerate(starts):
         l = min(chunk, t - t0)
-        ops_ += (n + p) * l * (l + 1)
-        ops_ += 2 * l * n * p * ((i > 0) + (i < len(starts) - 1))
-    return bound(nbytes(x, dt, a, b, c) + nbytes(x),
-                 ops_ * bsz * h / F32_FLOPS_PER_S)
+        cb += n * l * (l + 1)
+        rest += p * l * (l + 1)
+        rest += 2 * l * n * p * ((i > 0) + (last_update
+                                             or i < len(starts) - 1))
+    return cb, rest
+
+
+def ssd_bound(x, dt, a, b, c, y, state, chunk):
+    """The redesigned kernel's work: its chunk (ssd_scan.KERNEL_CHUNK), the
+    state update after the last chunk too (the final state is an output).
+    On f32 inputs every product is three tensor-core passes (3xTF32) at the
+    TF32 rate.  On bf16 x, B and C their lo parts are 0: C Bᵀ is one
+    bf16 x bf16 product, counted at the bf16 rate, and the other three
+    products (one f32 operand each) two TF32 passes.  Bytes: every input
+    read once in its own type, y and the state written once."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    cb, rest = (f * bsz * h for f in _ssd_flops(t, chunk, p, n, True))
+    if x.dtype == torch.bfloat16:
+        op_seconds = cb / BF16_FLOPS_PER_S + 2 * rest / TF32_FLOPS_PER_S
+    else:
+        op_seconds = 3 * (cb + rest) / TF32_FLOPS_PER_S
+    return bound(nbytes(x, dt, a, b, c, y, state), op_seconds)
+
+
+def ssd_cuda_core_bound(x, dt, a, b, c):
+    """The earlier CUDA-core kernel's bound, kept so that its rows compare
+    with the tensor-core kernel's: chunk 128, no state update after the
+    last chunk, f32 products at the CUDA-core rate; f32 inputs read and y
+    written once."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    flops = sum(_ssd_flops(t, 128, p, n, False)) * bsz * h
+    return bound(4 * (x.numel() + dt.numel() + a.numel() + b.numel()
+                      + c.numel() + x.numel()), flops / F32_FLOPS_PER_S)
 
 
 def upcast(tree):
@@ -760,39 +801,92 @@ def main():
                 -torch.exp(randn(h) * 0.5),
                 randn(bsz, t, g, n) * 0.3, randn(bsz, t, g, n) * 0.3)
 
-    ssd_rows, ssd_err = [], 0.0
-    for shape, (bsz, t) in SSD_SHAPES.items():
-        args = ssd_inputs(bsz, t, seed=t)
-        got = ssd_scan.ssd_scan(*args)
-        sequential = shape == "vs_sequential"
-        plain = functools.partial(ops.ssd, *args, backend=(
-            "ref" if sequential else "chunked"))
-        want = plain()
+    def conv_output_views(bsz, t, seed):
+        """x, B and C as the model hands them to the kernel: bf16 views of
+        one (B, T, H P + 2 G N) conv output."""
+        card_gen.manual_seed(seed)
+        h, g, n, p = (mcfg.ssm_heads, mcfg.ssm_groups, mcfg.ssm_state,
+                      mcfg.ssm_headdim)
+        xbc = (torch.randn((bsz, t, h * p + 2 * g * n), generator=card_gen,
+                           device=dev) * 0.5).to(torch.bfloat16)
+        return (xbc[..., :h * p].reshape(bsz, t, h, p),
+                xbc[..., h * p:h * p + g * n].reshape(bsz, t, g, n),
+                xbc[..., h * p + g * n:].reshape(bsz, t, g, n))
+
+    def ssd_close(what, got, want):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.allclose(got, want, rtol=2e-4, atol=2e-5) \
                 or not torch.isfinite(got).all():
-            raise AssertionError(f"ssd_scan {shape} {tuple(got.shape)}: "
+            raise AssertionError(f"ssd_scan {what} {tuple(got.shape)}: the "
                                  f"kernel disagrees with the plain version "
                                  f"({err})")
-        ssd_err = max(ssd_err, err)
+        return err
+
+    ssd_rows, ssd_err = [], 0.0
+    for shape, (bsz, t) in SSD_SHAPES.items():
+        args = ssd_inputs(bsz, t, seed=t)
+        got, state = ssd_scan.ssd_scan(*args, return_state=True)
+        sequential = shape == "vs_sequential"
+        plain = functools.partial(ops.ssd, *args, backend=(
+            "ref" if sequential else "chunked"))
+        err = ssd_close(shape, got, plain())
+        state_err = ssd_close(f"{shape} final state", state,
+                              ref.ssd_final_state_ref(*args[:4]))
+        ssd_err = max(ssd_err, err, state_err)
         row = {"shape": shape, "b": bsz, "t": t, "h": mcfg.ssm_heads,
                "p": mcfg.ssm_headdim, "n": mcfg.ssm_state,
                "g": mcfg.ssm_groups,
                "plain": "ssd_scan_ref" if sequential else "ssd_chunked_ref",
-               "max_abs_err": err}
+               "max_abs_err": err, "state_max_abs_err": state_err}
         if not sequential:
             reps = 20 if t * bsz <= 8192 else 5
-            row["ms"] = kernel_ms(lambda: ssd_scan.ssd_scan(*args), reps,
-                                  "ssd_scan_kernel")
-            row["call_ms"] = time_ms(lambda: ssd_scan.ssd_scan(*args), reps)
-            row["plain_ms"] = time_ms(plain, 3)
-            row["bound_ms"], row["bound_by"] = ssd_bound(*args,
-                                                         ssd_scan.CHUNK)
+
+            def call():
+                return ssd_scan.ssd_scan(*args, return_state=True)
+            row["ms"] = kernel_ms(call, reps, "ssd_scan_kernel")
+            row["call_ms"] = time_ms(call, reps)
+            row["plain_ms"] = time_ms(
+                lambda: (plain(), ref.ssd_final_state_ref(*args[:4])), 3)
+            row["bound_ms"], row["bound_by"] = ssd_bound(
+                *args, got, state, ssd_scan.KERNEL_CHUNK)
             row["bound_us"] = row["bound_ms"] * 1e3
+            row["cuda_core_bound_ms"], _ = ssd_cuda_core_bound(*args)
+        if shape == "prefill":
+            # The main path's call: bf16 views of a conv output, read in
+            # place; bit-equal to the same call on f32 contiguous copies.
+            x16, b16, c16 = conv_output_views(bsz, t, seed=t + 1)
+            dt_, a_ = args[1:3]
+            views = (x16, dt_, a_, b16, c16)
+            copies = (x16.float().contiguous(), dt_, a_,
+                      b16.float().contiguous(), c16.float().contiguous())
+            got16 = ssd_scan.ssd_scan(*views, return_state=True)
+            want16 = ssd_scan.ssd_scan(*copies, return_state=True)
+            torch.cuda.synchronize()
+            if not all(torch.equal(u, v) for u, v in zip(got16, want16)):
+                raise AssertionError("ssd_scan: bf16 views differ from the "
+                                     "same call on f32 copies")
+            # ... and held to the plain versions on the same views.
+            y_plain, state_plain = ops.ssd(*views, backend="chunked",
+                                           return_state=True)
+            row["bf16_views_max_abs_err"] = ssd_close(
+                "bf16 views", got16[0], y_plain)
+            row["bf16_views_state_max_abs_err"] = ssd_close(
+                "bf16 views final state", got16[1], state_plain)
+            ssd_err = max(ssd_err, row["bf16_views_max_abs_err"],
+                          row["bf16_views_state_max_abs_err"])
+
+            def call16():
+                return ssd_scan.ssd_scan(*views, return_state=True)
+            row["bf16_views_equal_f32_copies"] = True
+            row["bf16_views_ms"] = kernel_ms(call16, reps, "ssd_scan_kernel")
+            row["bf16_views_bound_ms"], _ = ssd_bound(
+                *views, *got16, ssd_scan.KERNEL_CHUNK)
+            del (views, copies, got16, want16, x16, b16, c16, y_plain,
+                 state_plain)
         ssd_rows.append(row)
         emit({"phase": "kernels", "kernel": "ssd_scan", **row})
-        del args, got, want
+        del args, got, state
 
     phase_done("kernels")
     # -- 4. serve: the 1024-plant fleet -------------------------------------
@@ -1212,6 +1306,15 @@ def main():
     if events and len(ssd_us) != mcfg.n_layers:
         raise AssertionError(f"profile i: {len(ssd_us)} ssd_scan kernels in "
                              f"one prefill, expected {mcfg.n_layers}")
+    # The final SSM state comes out of ssd_scan: no scan (cumsum) or flip
+    # of a plain distillation may run beside it.
+    state_ops = sorted({name for name in by_name
+                        if "ssd_scan_kernel" not in name
+                        and any(k in name.lower()
+                                for k in ("scan", "cumsum", "flip"))})
+    if state_ops:
+        raise AssertionError(f"profile i: state kernels outside ssd_scan in "
+                             f"the prefill: {state_ops}")
     emit({"phase": "profile", "run": "i_bf16_real", "prefills": 1,
           "kernel": "ssd_scan_kernel", "kernel_launches": len(ssd_us),
           "drained_events": drained,
@@ -1219,6 +1322,7 @@ def main():
           "device_busy_share": busy_us / 1e6 / wall,
           "ssd_scan_ms": sum(ssd_us) / 1e3,
           "ssd_scan_share_of_busy": sum(ssd_us) / busy_us if busy_us else None,
+          "state_kernels_outside_ssd_scan": state_ops,
           "device_events": len(events),
           "top_device_us": sorted(by_name.items(),
                                   key=lambda kv: -kv[1])[:12]})
@@ -1316,7 +1420,11 @@ def main():
                        else "call_ms"),
          "call_ms": ssd_head["call_ms"], "plain_ms": ssd_head["plain_ms"],
          "bound_ms": ssd_head["bound_ms"], "bound_us": ssd_head["bound_us"],
-         "bound_by": ssd_head["bound_by"], "library_ms": None,
+         "bound_by": ssd_head["bound_by"],
+         "cuda_core_bound_ms": ssd_head["cuda_core_bound_ms"],
+         "bf16_views_ms": ssd_head["bf16_views_ms"],
+         "bf16_views_bound_ms": ssd_head["bf16_views_bound_ms"],
+         "library_ms": None,
          "shape": f"{MAMBA_ARCH} prefill, B={ssd_head['b']} "
                   f"T={ssd_head['t']} H={ssd_head['h']} P={ssd_head['p']} "
                   f"N={ssd_head['n']} G={ssd_head['g']}",

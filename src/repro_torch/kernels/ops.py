@@ -584,20 +584,27 @@ def sparse_dense(x: torch.Tensor, w: BlockSparseWeight, *,
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
-        c: torch.Tensor, *, backend: Backend = "auto") -> torch.Tensor:
+        c: torch.Tensor, *, backend: Backend = "auto",
+        return_state: bool = False
+        ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Batched, grouped SSD scan.
 
     Args:
-      x: (B, T, H, P); dt: (B, T, H); a: (H,);
-      b/c: (B, T, G, N), G groups shared by H / G heads each.
-    Returns (B, T, H, P) f32.
+      x: (B, T, H, P); dt: (B, T, H) f32; a: (H,) f32;
+      b/c: (B, T, G, N), G groups shared by H / G heads each.  x, b and c
+        may be f32 or bf16 views (the conv output's channels).
+      return_state: also return the final state S_T (B, H, P, N) f32, the
+        layout of the decode cache's ssm arena.
+    Returns y (B, T, H, P) f32, or ``(y, state)``.
 
     ``backend``: ``"auto"`` (the kernel for CUDA tensors, ``"chunked"``
     for CPU tensors), ``"kernel"``, ``"ref"`` (the sequential recurrence,
     :func:`ref.ssd_scan_ref`, the whole batch stepped together) or
     ``"chunked"`` (the chunk-parallel plain version,
-    :func:`ref.ssd_chunked_ref`, at the kernel's chunk ``ssd_scan.CHUNK``).
-    The kernel covers the whole batch in one launch, reads B/C by group and
+    :func:`ref.ssd_chunked_ref`, at ``ssd_scan.CHUNK``); the plain versions
+    take the state from :func:`ref.ssd_final_state_ref`.  The kernel covers
+    the whole batch in one launch, reads x, B and C where they lie (by
+    group, no repeat to heads; a copy only for a view it cannot read) and
     takes any T, treating the steps past T as dt = 0; ``"chunked"`` pads T
     so, with zeros (steps with dt = 0 contribute nothing), as the
     reference's Pallas wrapper pads.
@@ -605,19 +612,27 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     backend = _backend_of(backend, "ssd_scan")
     if backend == "chunked" or backend == "ref" or not _use_kernel(
             x, backend, "ssd_scan"):
+        x, b, c = (v.to(torch.float32) for v in (x, b, c))
         bsz, t, h = x.shape[:3]
         reps = h // b.shape[2]
         b_full = torch.repeat_interleave(b, reps, dim=2)
         c_full = torch.repeat_interleave(c, reps, dim=2)
         if backend == "ref":
-            return ref.ssd_scan_ref(x, dt, a, b_full, c_full)
-        pad = (-t) % ssd_scan.CHUNK
-        xp, dtp, bp, cp = (
-            torch.nn.functional.pad(v, (0, 0) * (v.ndim - 2) + (0, pad))
-            for v in (x, dt, b_full, c_full))
-        return torch.stack([
-            ref.ssd_chunked_ref(xp[i], dtp[i], a, bp[i], cp[i],
-                                chunk=ssd_scan.CHUNK)
-            for i in range(bsz)])[:, :t]
-    return ssd_scan.ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
-                             b.contiguous(), c.contiguous())
+            y = ref.ssd_scan_ref(x, dt, a, b_full, c_full)
+        else:
+            pad = (-t) % ssd_scan.CHUNK
+            xp, dtp, bp, cp = (
+                torch.nn.functional.pad(v, (0, 0) * (v.ndim - 2) + (0, pad))
+                for v in (x, dt, b_full, c_full))
+            y = torch.stack([
+                ref.ssd_chunked_ref(xp[i], dtp[i], a, bp[i], cp[i],
+                                    chunk=ssd_scan.CHUNK)
+                for i in range(bsz)])[:, :t]
+        if not return_state:
+            return y
+        return y, ref.ssd_final_state_ref(x, dt, a, b)
+    x, b, c = (v if ssd_scan.reads(v)
+               else v.clone(memory_format=torch.contiguous_format)
+               for v in (x, b, c))
+    return ssd_scan.ssd_scan(x, dt.contiguous(), a.contiguous(), b, c,
+                             return_state=return_state)

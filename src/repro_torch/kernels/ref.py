@@ -167,6 +167,27 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return (y_intra + torch.stack(y_inter)).reshape(t, h, p)
 
 
+def ssd_final_state_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """The final SSM state S_T of a batch of scans — the plain version of
+    the kernel's second output.
+
+    The recurrence's contribution sum (exact, O(T)):
+    S_T = sum_τ exp(sum_{σ>τ} dt_σ A) dt_τ (x_τ ⊗ B_τ), contracted per group
+    (no repeat of B to heads).  x (B, T, H, P), dt (B, T, H), a (H,),
+    b (B, T, G, N), f32; returns (B, H, P, N).  Steps with dt = 0 (a
+    zero-padded tail) leave it unchanged.
+    """
+    bsz, t, h, p = x.shape
+    g, n = b.shape[2:]
+    alpha = dt * a                                          # (B, T, H)
+    srev = torch.flip(torch.cumsum(torch.flip(alpha, (1,)), dim=1), (1,))
+    w = torch.exp(srev - alpha) * dt                        # exp(Σ_{σ>τ} α) dt_τ
+    r = h // g
+    return torch.einsum("bsgr,bsgrp,bsgn->bgrpn", w.reshape(bsz, t, g, r),
+                        x.reshape(bsz, t, g, r, p), b).reshape(bsz, h, p, n)
+
+
 def ssd_update_ref(state: torch.Tensor, xt: torch.Tensor, dtt: torch.Tensor,
                    a: torch.Tensor, bt: torch.Tensor, ct: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:

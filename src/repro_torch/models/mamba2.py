@@ -4,7 +4,9 @@
 Block: in_proj → causal depthwise conv (xBC) → SSD scan → gated RMSNorm →
 out_proj.  The full-sequence passes (:func:`forward_logits`, :func:`prefill`)
 run the SSD through ``ops.ssd`` — the hand-written ``ssd_scan`` kernel on the
-card, one launch per layer for the whole batch; decode carries (conv, ssm)
+card, one launch per layer for the whole batch, reading x, B and C in place
+from the conv output; :func:`prefill` takes each layer's final SSM state
+from that same launch.  Decode carries (conv, ssm)
 state per sequence and runs plain tensor ops (the reference's
 ``ssd_update_ref``, no kernel).  The in/out projections are quantizable
 (§6.1) through ``common.linear``; the scan stays f32.
@@ -81,23 +83,27 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
 
 def _causal_conv(p: Params, xbc: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over (B, S, C): left pad K - 1, one filter per
-    channel (a cross-correlation, as ``lax.conv_general_dilated``)."""
+    channel (a cross-correlation, as ``lax.conv_general_dilated``).  The
+    result is (B, S, C) contiguous: the bias add writes it so, and the SSD
+    then reads its channels in place."""
     k, c = p["conv_w"].shape
     w = p["conv_w"].to(xbc.dtype).t().unsqueeze(1)        # (C, 1, K)
     y = F.conv1d(F.pad(xbc.transpose(1, 2), (k - 1, 0)), w, groups=c)
-    return F.silu(y.transpose(1, 2) + p["conv_b"].to(xbc.dtype))
+    out = torch.empty(xbc.shape, dtype=xbc.dtype, device=xbc.device)
+    torch.add(y.transpose(1, 2), p["conv_b"].to(xbc.dtype), out=out)
+    return F.silu(out, inplace=True)
 
 
 def _mixer_inputs(p: Params, cfg: ArchConfig, xbc: torch.Tensor,
                   dt_raw: torch.Tensor):
-    """(xs, B, C, dt, A) of the SSD, f32, from the conv's output."""
+    """(xs, B, C, dt, A) of the SSD from the conv's output: xs, B and C are
+    views of it in its own type (``ops.ssd`` reads them where they lie),
+    dt and A f32."""
     d_inner, h, g, n, _, _ = _dims(cfg)
     b, s, _ = xbc.shape
-    xs = xbc[..., :d_inner].reshape(b, s, h, cfg.ssm_headdim) \
-        .to(torch.float32)
-    bmat = xbc[..., d_inner:d_inner + g * n].reshape(b, s, g, n) \
-        .to(torch.float32)
-    cmat = xbc[..., d_inner + g * n:].reshape(b, s, g, n).to(torch.float32)
+    xs = xbc[..., :d_inner].reshape(b, s, h, cfg.ssm_headdim)
+    bmat = xbc[..., d_inner:d_inner + g * n].reshape(b, s, g, n)
+    cmat = xbc[..., d_inner + g * n:].reshape(b, s, g, n)
     dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])
     return xs, bmat, cmat, dt, a
@@ -106,7 +112,8 @@ def _mixer_inputs(p: Params, cfg: ArchConfig, xbc: torch.Tensor,
 def _gated_out(p: Params, cfg: ArchConfig, y: torch.Tensor,
                xs: torch.Tensor, z: torch.Tensor, backend: kops.Backend
                ) -> torch.Tensor:
-    """D skip, gated RMSNorm and out_proj over the SSD's output."""
+    """D skip, gated RMSNorm and out_proj over the SSD's output (f32 ``y``;
+    ``xs`` in the working type, promoted exactly to f32 by the skip)."""
     b, s = z.shape[:2]
     y = y + p["d_skip"][None, None, :, None] * xs
     y = y.reshape(b, s, cfg.d_inner).to(cfg.dtype)
@@ -129,28 +136,19 @@ def _mamba_forward_state(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
                          backend: kops.Backend = "auto"
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`mamba_forward` that also returns the final (conv, ssm) state."""
-    _, h, g, n, _, _ = _dims(cfg)
-    b, s, _ = x.shape
+    s = x.shape[1]
     zxbcdt = cm.linear(p["in_proj"], x, backend=backend)
     z, xbc_pre, dt_raw = _split_proj(cfg, zxbcdt)
     # The conv state is the last K - 1 inputs, front-padded with zeros for
     # prompts shorter than the kernel (the stepwise decode's initial state).
     k1 = cfg.conv_kernel - 1
     pad = max(k1 - s, 0)
-    conv_state = F.pad(xbc_pre, (0, 0, pad, 0))[:, -k1:, :]
+    conv_state = F.pad(xbc_pre[:, -k1:, :], (0, 0, pad, 0))
     xs, bmat, cmat, dt, a = _mixer_inputs(p, cfg, _causal_conv(p, xbc_pre),
                                           dt_raw)
-    y = kops.ssd(xs, dt, a, bmat, cmat, backend=backend)
-
-    # Final SSM state: the recurrence's contribution sum (exact, O(S)),
-    # contracted per group (no repeat of B to heads).
-    alpha = dt * a                                          # (B, S, H)
-    srev = torch.flip(torch.cumsum(torch.flip(alpha, (1,)), dim=1), (1,))
-    w = torch.exp(srev - alpha) * dt                        # exp(Σ_{σ>τ} α) dt_τ
-    r = h // g
-    ssm_state = torch.einsum(
-        "bsgr,bsgrp,bsgn->bgrpn", w.reshape(b, s, g, r),
-        xs.reshape(b, s, g, r, -1), bmat).reshape(b, h, -1, n)
+    # The final SSM state comes out of the scan itself.
+    y, ssm_state = kops.ssd(xs, dt, a, bmat, cmat, backend=backend,
+                            return_state=True)
     return (_gated_out(p, cfg, y, xs, z, backend),
             {"conv": conv_state, "ssm": ssm_state})
 

@@ -16,8 +16,9 @@ in another order than ``torch.mean``: within 1e-5 relative for SINT; a
 final softmax runs its own expf and row sum: within the REAL tolerance.
 ``sparse_matmul`` (f32 FMAs in K order against cuBLAS's f32 product, TF32
 off) within 1e-4, pruned columns exactly 0.  ``ssd_scan`` (another cumsum
-and product order than the plain version) within the reference's own
-rtol 2e-4 / atol 2e-5.
+and product order than the plain version, 3xTF32 tensor-core products) y
+and final state within the reference's own rtol 2e-4 / atol 2e-5; on bf16
+views bit-equal to the same call on f32 copies.
 """
 
 import numpy as np
@@ -415,14 +416,21 @@ def ssd_inputs(bsz, t, h, p, n, g, seed=0):
             for v in (x, dt, a, b, c)]
 
 
-@pytest.mark.parametrize("shape", [
+SSD_CARD_SHAPES = [
     (8, 1024, 32, 64, 128, 1),      # mamba2-370m's prefill in the serve runs
     (8, 1000, 32, 64, 128, 1),      # a ragged last chunk
     (1, 4096, 32, 64, 128, 1),      # one long row
     (2, 300, 16, 32, 32, 2),        # the reduced widths, two groups
     (3, 200, 8, 64, 64, 4),
     (2, 129, 4, 32, 128, 1),
-], ids=lambda s: "x".join(map(str, s)))
+]
+
+
+def ssd_ids(shape):
+    return "x".join(map(str, shape))
+
+
+@pytest.mark.parametrize("shape", SSD_CARD_SHAPES, ids=ssd_ids)
 def test_ssd_scan_matches_chunked(shape):
     args = ssd_inputs(*shape)
     before = ssd_scan.launches
@@ -432,6 +440,82 @@ def test_ssd_scan_matches_chunked(shape):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", SSD_CARD_SHAPES, ids=ssd_ids)
+def test_ssd_scan_state_matches_plain(shape):
+    """The kernel's final state (one launch with y) against the plain
+    contribution sum, y unchanged by asking for it."""
+    args = ssd_inputs(*shape, seed=3)
+    before = ssd_scan.launches
+    y, state = ops.ssd(*args, return_state=True)
+    assert ssd_scan.launches == before + 1
+    bsz, _, h, p, n, _ = shape
+    assert state.shape == (bsz, h, p, n) and state.dtype == torch.float32
+    want = ref.ssd_final_state_ref(*args[:4])
+    torch.cuda.synchronize()
+    assert torch.isfinite(state).all()
+    torch.testing.assert_close(state, want, rtol=2e-4, atol=2e-5)
+    assert torch.equal(y, ops.ssd(*args))
+
+
+def test_ssd_scan_is_deterministic():
+    args = ssd_inputs(8, 1000, 32, 64, 128, 1, seed=4)
+    first = ops.ssd(*args, return_state=True)
+    second = ops.ssd(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+def conv_output(bsz, t, h, p, n, g, seed):
+    """x, B and C as the model hands them over: bf16 views of one
+    (B, T, H P + 2 G N) conv output."""
+    gen = torch.Generator().manual_seed(seed)
+    xbc = (torch.randn((bsz, t, h * p + 2 * g * n), generator=gen) * 0.5) \
+        .to(torch.bfloat16).cuda()
+    return (xbc[..., :h * p].reshape(bsz, t, h, p),
+            xbc[..., h * p:h * p + g * n].reshape(bsz, t, g, n),
+            xbc[..., h * p + g * n:].reshape(bsz, t, g, n))
+
+
+@pytest.mark.parametrize("shape", [(8, 1000, 32, 64, 128, 1),
+                                   (2, 300, 16, 32, 32, 2)], ids=ssd_ids)
+def test_ssd_scan_reads_bf16_views_in_place(shape):
+    """bf16 strided views give the bits of the same call on f32 contiguous
+    copies (bf16 is exact in f32, and every op after the load is explicit)
+    and agree with the plain versions on the same views; ops.ssd copies
+    nothing for them."""
+    x, b, c = conv_output(*shape, seed=5)
+    assert not x.is_contiguous() and ssd_scan.reads(x) and ssd_scan.reads(b)
+    _, dt, a, _, _ = ssd_inputs(*shape, seed=5)
+    got = ssd_scan.ssd_scan(x, dt, a, b, c, return_state=True)
+    want = ssd_scan.ssd_scan(*(v.float().contiguous() for v in (x, dt, a)),
+                             b.float().contiguous(), c.float().contiguous(),
+                             return_state=True)
+    via_ops = ops.ssd(x, dt, a, b, c, return_state=True)
+    plain = ops.ssd(x, dt, a, b, c, backend="chunked", return_state=True)
+    torch.cuda.synchronize()
+    for u, v, w, q in zip(got, want, via_ops, plain):
+        assert torch.equal(u, v) and torch.equal(u, w)
+        assert torch.isfinite(u).all()
+        torch.testing.assert_close(u, q, rtol=2e-4, atol=2e-5)
+
+
+def test_ssd_copies_an_unaligned_contiguous_input():
+    """A contiguous x at a base that is not 16-byte aligned is one the
+    kernel cannot read in place: ops.ssd copies it and launches."""
+    args = ssd_inputs(2, 300, 16, 32, 32, 2, seed=6)
+    x = args[0]
+    buf = torch.empty(x.numel() + 1, device=x.device)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.is_contiguous() and not ssd_scan.reads(shifted)
+    before = ssd_scan.launches
+    got = ops.ssd(shifted, *args[1:], return_state=True)
+    assert ssd_scan.launches == before + 1
+    want = ops.ssd(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
 
 
 def test_ssd_scan_matches_sequential():

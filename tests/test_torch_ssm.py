@@ -33,7 +33,7 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import _truncate_eos as j_truncate_eos
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.configs.base import ARCH_IDS, get_config
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, ssd_scan
 from repro_torch.models import mamba2
 from repro_torch.models.api import get_model
 from repro_torch.serving import Engine, Request, sample_batched
@@ -92,9 +92,11 @@ def test_unported_families_raise():
 # SSD plain versions
 
 
-@pytest.mark.parametrize("t,h,p,n,g", [(128, 2, 32, 16, 1),
-                                       (100, 4, 16, 8, 2),
-                                       (64, 8, 16, 64, 8)])
+# (T, H, P, N, G): a whole chunk, a ragged T with G > 1, G = H.
+SSD_SHAPES = [(128, 2, 32, 16, 1), (100, 4, 16, 8, 2), (64, 8, 16, 64, 8)]
+
+
+@pytest.mark.parametrize("t,h,p,n,g", SSD_SHAPES)
 def test_ssd_matches_reference(t, h, p, n, g):
     """ops.ssd 'chunked', 'ref' and 'auto' (chunked on CPU tensors) against
     the interpreted Pallas kernel and the sequential reference, with a
@@ -110,6 +112,84 @@ def test_ssd_matches_reference(t, h, p, n, g):
         np.testing.assert_allclose(got, seq, **SSD_TOL)
     with pytest.raises(ValueError, match="ssd_scan kernel has no CPU"):
         ops.ssd(*tensors(*args), backend="kernel")
+
+
+def jax_final_states(x, dt, a, b):
+    """The JAX package's final SSM state of each row, two ways: stepping
+    ``repro.kernels.ref.ssd_update_ref`` over T, and the contribution-sum
+    einsum that ``repro.models.mamba2._mamba_forward_state`` runs (restated
+    here: it sits inside the model function)."""
+    bsz, t, h, p = x.shape
+    bf = np.repeat(b, h // b.shape[2], axis=2)
+    update = jax.jit(jref.ssd_update_ref)
+    stepped = []
+    for i in range(bsz):
+        state = jnp.zeros((h, p, b.shape[-1]), jnp.float32)
+        for s in range(t):
+            state, _ = update(state, x[i, s], dt[i, s], a, bf[i, s], bf[i, s])
+        stepped.append(np.asarray(state))
+    alpha = dt * a
+    srev = jnp.cumsum(alpha[:, ::-1], axis=1)[:, ::-1]
+    w = jnp.exp(srev - alpha) * dt
+    einsum = jnp.einsum("bsh,bshp,bshn->bhpn", w, x, bf)
+    return np.stack(stepped), np.asarray(einsum)
+
+
+@pytest.mark.parametrize("t,h,p,n,g", SSD_SHAPES)
+def test_ssd_final_state_matches_reference(t, h, p, n, g):
+    """ops.ssd(..., return_state=True) on every plain backend: the same y
+    as without the state, and the final state of the JAX package's stepped
+    recurrence and of its prefill's einsum."""
+    args = ssd_inputs(2, t, h, p, n, g)
+    stepped, einsum = jax_final_states(*args[:4])
+    for backend in ("chunked", "ref", "auto"):
+        y, state = ops.ssd(*tensors(*args), backend=backend,
+                           return_state=True)
+        assert torch.equal(y, ops.ssd(*tensors(*args), backend=backend))
+        assert state.shape == (2, h, p, n) and state.dtype == torch.float32
+        np.testing.assert_allclose(state.numpy(), stepped, **SSD_TOL)
+        np.testing.assert_allclose(state.numpy(), einsum, **SSD_TOL)
+    np.testing.assert_allclose(
+        ref.ssd_final_state_ref(*tensors(*args[:4])).numpy(), einsum,
+        **SSD_TOL)
+
+
+def test_mixer_inputs_are_views_of_the_conv_output():
+    """x, B and C reach ops.ssd as bf16 views of the (contiguous) conv
+    output that the kernel reads in place, and the plain path gives them
+    the bits of f32 copies."""
+    cfg = get_config("mamba2_370m").reduced()
+    params = get_model(cfg).init(torch.Generator().manual_seed(0),
+                                 device="cpu")
+    p = mamba2._layer(params["blocks"], 0)["mixer"]
+    x = torch.randn((2, 40, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).to(cfg.dtype)
+    z, xbc, dt_raw = mamba2._split_proj(
+        cfg, x @ p["in_proj"]["w"].to(cfg.dtype))
+    conv = mamba2._causal_conv(p, xbc)
+    assert conv.is_contiguous() and conv.dtype == torch.bfloat16
+    xs, bmat, cmat, dt, a = mamba2._mixer_inputs(p, cfg, conv, dt_raw)
+    for v in (xs, bmat, cmat):
+        assert v.dtype == torch.bfloat16 and ssd_scan.reads(v)
+        assert v.untyped_storage().data_ptr() == \
+            conv.untyped_storage().data_ptr()
+    assert dt.dtype == a.dtype == torch.float32
+    got = ops.ssd(xs, dt, a, bmat, cmat, return_state=True)
+    want = ops.ssd(xs.float(), dt, a, bmat.float(), cmat.float(),
+                   return_state=True)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+def test_ssd_reads_only_aligned_packed_views():
+    """ssd_scan.reads: a view whose rows are packed and 16-byte aligned is
+    read in place; a contiguous tensor at an unaligned base is not, and a
+    contiguous clone of it is (what ops.ssd hands the kernel instead)."""
+    x = torch.zeros((2, 8, 4, 16))
+    assert ssd_scan.reads(x)
+    shifted = torch.zeros(x.numel() + 1)[1:].view(x.shape)
+    assert shifted.is_contiguous() and not ssd_scan.reads(shifted)
+    assert ssd_scan.reads(shifted.clone(memory_format=torch.contiguous_format))
+    assert not ssd_scan.reads(torch.zeros((2, 8, 16, 4)).transpose(2, 3))
 
 
 @pytest.mark.parametrize("mapping,same_as", [
