@@ -3,22 +3,26 @@ fleet of them, in ONE launch.
 
 Replaces ``src/repro/kernels/fused_mlp.py::fused_mlp`` (the Pallas TPU
 kernel behind ``ops.fused_forward``); the kernel is ``csrc/fused_mlp.cu``,
-whose header gives the design, the numerics and what bounds it.  Every
-layer's weights are read from device memory (L2-resident for the detector),
-the activations of the current and the next layer live in the block's
-shared memory, SINT layers requantize in-kernel and only the last layer's
-rows are written back.
+whose header gives the design, the numerics and what bounds it.  A block
+owns a tile of rows, reads its input once and keeps every activation on
+chip; only the last layer's rows are written back.  Two paths, chosen at
+plan time (:func:`path`): ``INT8_MMA`` when every layer is int8 (SINT):
+int8 codes in shared memory, products on the tensor cores from a K-major,
+zero-padded int8 copy of each weight made here once, epilogues that
+requantize in registers; ``F32_TILE`` otherwise: f32 tiles and CUDA-core
+dots.
 
-A stack is described once (:class:`FusedStack`: device tensors plus the
-fixed-size descriptor array the launch passes by value) and launched many
-times by :func:`fused_mlp`, which runs on CUDA tensors only.  The ``backend``
-contract and the plain version live in ``ops.fused_forward`` and
-``ref.fused_mlp_ref``.
+A stack is described once (:class:`FusedStack`: device tensors, the K-major
+copies and the fixed-size descriptor array the launch passes by value) and
+launched many times by :func:`fused_mlp`, which runs on CUDA tensors only.
+The ``backend`` contract and the plain version live in ``ops.fused_forward``
+and ``ref.fused_mlp_ref``.
 
 The grouped kernel (``csrc/grouped_mlp.cu``, replacing the reference's
-``grouped_fused_mlp``) runs a G-group fleet the same way: a fleet is laid out
-once (:class:`GroupedStack`: per-position (G, K, N) arenas, the per-group
-``meta`` table and the descriptor) and launched by
+``grouped_fused_mlp``) runs a G-group fleet the same way, each group at its
+true widths: a fleet is laid out once (:class:`GroupedStack`: per-position
+(G, K, N) arenas, their K-major copies, the per-group ``meta`` table with
+the true widths and the descriptor) and launched by
 :func:`grouped_fused_mlp`; ``ops.grouped_apply`` holds its ``backend``
 contract and ``ref.grouped_mlp_ref`` its plain version.
 """
@@ -57,7 +61,20 @@ GROUPED_KIND_SCORE = 1      # score head: mean squared error vs the target
 MODES = {torch.float32: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3}
 
 MAX_LAYERS = 8          # the descriptor arrays' fixed length
-BLOCK_M = 16            # rows per thread block
+BLOCK_M = 8             # rows per thread block (csrc/mlp_common.cuh)
+GROUPED_ROWS = 16       # rows per block of the grouped int8_mma kernel
+MMA_K, MMA_N = 32, 8    # mma.sync m16n8k32: the depth and width granules
+# The int8 code tiles' row padding: a row stride of round32(K) + 16 bytes
+# puts the 8 rows of an A fragment on distinct shared-memory banks.
+CODE_PAD = 16
+
+# Static shared memory of the int8 kernels: their step tables, one 56-byte
+# Step (csrc/mlp_common.cuh) per layer or position.
+STEPS_BYTES = MAX_LAYERS * 56
+
+# The two paths (:func:`path`).
+INT8_MMA = "int8_mma"   # every layer int8: tensor-core products, int8 codes
+F32_TILE = "f32_tile"   # any REAL/INT16/INT32 layer: f32 tiles, CUDA cores
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_PER_BLOCK = 232_448
 
@@ -98,22 +115,64 @@ def _layer_mode(dtype: torch.dtype) -> str:
     raise ValueError(f"unsupported fused-layer weight dtype {dtype}")
 
 
-def smem_bytes(widths: Sequence[int], block_m: int = BLOCK_M) -> int:
-    """The kernel's shared-memory bill per block: two f32 activation tiles
-    (the current layer's input and its output) of ``block_m`` rows by the
-    widest of ``widths`` (the stack's input width and every layer's output
-    width)."""
-    return 2 * block_m * max(widths) * 4
+def _round_up(v: int, granule: int) -> int:
+    return -(-v // granule) * granule
+
+
+def path(stack) -> str:
+    """The kernel path a stack runs: :data:`INT8_MMA` when every layer (or
+    layer position) has int8 weights, else :data:`F32_TILE`.  ``stack`` is a
+    :class:`FusedStack`, a :class:`GroupedStack`, or the weight dtypes of
+    its layers (the plan-time gates' form).  A routing choice made in the
+    open, like ``qmatmul.path(m)``: both paths are hand-written kernels."""
+    if isinstance(stack, (FusedStack, GroupedStack)):
+        dtypes = [layer.w.dtype for layer in stack.layers]
+    else:
+        dtypes = list(stack)
+    return INT8_MMA if all(d == torch.int8 for d in dtypes) else F32_TILE
+
+
+def code_stride(widths: Sequence[int]) -> int:
+    """Row stride in bytes of the int8 code tiles for layers whose input
+    widths are ``widths``: the widest, rounded up to the MMA depth, plus
+    :data:`CODE_PAD`."""
+    return _round_up(max(widths), MMA_K) + CODE_PAD
+
+
+def smem_bytes(widths: Sequence[int], path: str = F32_TILE) -> int:
+    """The fused kernel's shared-memory bill per block, for ``widths`` (the
+    stack's input width, then every layer's output width).
+
+    :data:`F32_TILE`: two f32 activation tiles (the current layer's input
+    and its output) of :data:`BLOCK_M` rows by the widest width.
+    :data:`INT8_MMA`: two int8 code tiles of :data:`BLOCK_M` rows by
+    :func:`code_stride` of the layers' input widths (all but the last
+    width: the last layer writes f32 from registers), and the step table."""
+    if path == INT8_MMA:
+        return 2 * BLOCK_M * code_stride(widths[:-1]) + STEPS_BYTES
+    return 2 * BLOCK_M * max(widths) * 4
+
+
+def kmajor_int8(w: torch.Tensor) -> torch.Tensor:
+    """The tensor cores' copy of an int8 weight (or arena): ``(..., K, N)``
+    -> ``(..., round8(N), round32(K))``, transposed so that each output
+    column's K codes are contiguous (the B fragments' layout), and zero in
+    every pad (rows past N, lanes past K), so a padded product adds exact
+    zeros."""
+    *lead, k, n = w.shape
+    out = w.new_zeros((*lead, _round_up(n, MMA_N), _round_up(k, MMA_K)))
+    out[..., :n, :k] = w.transpose(-1, -2)
+    return out
 
 
 class _LayerDesc(ctypes.Structure):
     """csrc/fused_mlp.cu's `struct LayerDesc`, field for field."""
 
-    _fields_ = [("w", ctypes.c_void_p), ("scale", ctypes.c_void_p),
-                ("bias", ctypes.c_void_p), ("x_scale", ctypes.c_float),
-                ("k", ctypes.c_int), ("n", ctypes.c_int),
-                ("mode", ctypes.c_int), ("act", ctypes.c_int),
-                ("qmax", ctypes.c_float)]
+    _fields_ = [("w", ctypes.c_void_p), ("wt", ctypes.c_void_p),
+                ("scale", ctypes.c_void_p), ("bias", ctypes.c_void_p),
+                ("x_scale", ctypes.c_float), ("k", ctypes.c_int),
+                ("n", ctypes.c_int), ("mode", ctypes.c_int),
+                ("act", ctypes.c_int), ("qmax", ctypes.c_float)]
 
 
 class _MlpDesc(ctypes.Structure):
@@ -126,6 +185,8 @@ class _MlpDesc(ctypes.Structure):
 class FusedStack:
     """A validated stack of :class:`FusedLayer` plus its launch descriptor.
 
+    ``path`` is the kernel path (:func:`path`); on :data:`INT8_MMA`, ``wt``
+    holds each layer's :func:`kmajor_int8` copy (None on :data:`F32_TILE`).
     The descriptor holds raw device pointers; this object keeps the tensors
     they point into alive.  ``source`` is the param stack the layers were
     laid out from (what the plain version runs), when there is one.
@@ -140,6 +201,9 @@ class FusedStack:
         device = layers[0].w.device
         prev = layers[0].w.shape[0]
         desc = _MlpDesc(n_layers=len(layers))
+        self.path = path([layer.w.dtype for layer in layers])
+        self.wt = tuple(kmajor_int8(layer.w) if self.path == INT8_MMA
+                        else None for layer in layers)
         for i, layer in enumerate(layers):
             k, n = layer.w.shape
             if k != prev:
@@ -165,6 +229,7 @@ class FusedStack:
                 raise ValueError(f"layer {i}: scale must be (N,) f32")
             desc.layers[i] = _LayerDesc(
                 w=layer.w.data_ptr(),
+                wt=None if self.wt[i] is None else self.wt[i].data_ptr(),
                 scale=layer.scale.data_ptr() if quantized else None,
                 bias=layer.bias.data_ptr(),
                 x_scale=layer.x_scale if quantized else 0.0,
@@ -178,12 +243,18 @@ class FusedStack:
         self.device = device
         self.k0 = layers[0].w.shape[0]
         self.n_out = prev
-        self.width = max([self.k0] + [layer.w.shape[1] for layer in layers])
-        self.smem_bytes = smem_bytes([self.width])
+        widths = [self.k0] + [layer.w.shape[1] for layer in layers]
+        self.width = max(widths)
+        # The tile row stride the launch passes: bytes of int8 codes, or
+        # f32 lanes.
+        self.ld = (code_stride(widths[:-1]) if self.path == INT8_MMA
+                   else self.width)
+        self.smem_bytes = smem_bytes(widths, self.path)
         if self.smem_bytes > SMEM_PER_BLOCK:
             raise ValueError(
                 f"fused stack needs {self.smem_bytes} bytes of shared memory "
                 f"per block (> {SMEM_PER_BLOCK})")
+
 
 
 @functools.cache
@@ -216,7 +287,8 @@ def fused_mlp(x: torch.Tensor, stack: FusedStack) -> torch.Tensor:
     out = torch.empty((m, stack.n_out), dtype=torch.float32, device=x.device)
     if m == 0:
         return out
-    err = _entry()(x.data_ptr(), out.data_ptr(), m, BLOCK_M, stack.width,
+    err = _entry()(x.data_ptr(), out.data_ptr(), m,
+                   int(stack.path == INT8_MMA), stack.ld,
                    ctypes.addressof(stack.desc),
                    torch.cuda.current_stream(x.device).cuda_stream)
     if err:
@@ -246,21 +318,33 @@ class GroupedLayer(NamedTuple):
     x_scale: torch.Tensor
 
 
-def grouped_smem_bytes(k0: int, widths: Sequence[int],
-                       block_m: int = BLOCK_M) -> int:
-    """The grouped kernel's shared-memory bill per block: two f32 activation
-    tiles of ``block_m`` rows by the widest union width (the fleet's input
-    width ``k0`` and every position's output width)."""
-    return smem_bytes([k0, *widths], block_m)
+def grouped_smem_bytes(k0: int, widths: Sequence[int], path: str = F32_TILE,
+                       n_out: Optional[int] = None) -> int:
+    """The grouped kernel's shared-memory bill per block, for the fleet's
+    union input width ``k0`` and every position's union output width.
+
+    :data:`F32_TILE`: two f32 activation tiles of :data:`BLOCK_M` rows by
+    the widest union width.  :data:`INT8_MMA`: two int8 code tiles of
+    :data:`GROUPED_ROWS` rows by :func:`code_stride` of the positions' union
+    input widths, one f32 tile of :data:`GROUPED_ROWS` rows by ``n_out``
+    (the widest group's true output width; default the last union width)
+    that each group's last layer writes for the head epilogue, and the step
+    table."""
+    if path == INT8_MMA:
+        fld = widths[-1] if n_out is None else n_out
+        return (2 * GROUPED_ROWS * code_stride([k0, *widths[:-1]])
+                + GROUPED_ROWS * fld * 4 + STEPS_BYTES)
+    return smem_bytes([k0, *widths])
 
 
 class _PositionDesc(ctypes.Structure):
     """csrc/grouped_mlp.cu's `struct PositionDesc`, field for field."""
 
-    _fields_ = [("w", ctypes.c_void_p), ("scale", ctypes.c_void_p),
-                ("bias", ctypes.c_void_p), ("x_scale", ctypes.c_void_p),
-                ("k", ctypes.c_int), ("n", ctypes.c_int),
-                ("mode", ctypes.c_int), ("qmax", ctypes.c_float)]
+    _fields_ = [("w", ctypes.c_void_p), ("wt", ctypes.c_void_p),
+                ("scale", ctypes.c_void_p), ("bias", ctypes.c_void_p),
+                ("x_scale", ctypes.c_void_p), ("k", ctypes.c_int),
+                ("n", ctypes.c_int), ("mode", ctypes.c_int),
+                ("qmax", ctypes.c_float)]
 
 
 class _GroupedDesc(ctypes.Structure):
@@ -275,10 +359,13 @@ class GroupedStack:
     """A validated packed fleet plus its launch descriptor.
 
     ``layers``: one :class:`GroupedLayer` per position; ``meta``: the
-    (G, 2 + 2L) int32 table ``[kind, n_out, act_id x L, skip x L]`` per group
-    (``GROUPED_ACT_IDS``, ``GROUPED_KIND_*``); ``n_pay``: payload lanes per
-    row.  The descriptor holds raw device pointers; this object keeps the
-    tensors they point into alive.
+    (G, 2 + 4L) int32 kernel table ``[kind, n_out, act_id x L, skip x L,
+    k x L, n x L]`` per group (``GROUPED_ACT_IDS``, ``GROUPED_KIND_*``; k and
+    n are the group's true widths per position: ``ops.build_grouped_plan``'s
+    ``kernel_meta``); ``n_pay``: payload lanes per row.  ``path`` is the
+    kernel path (:func:`path`); on :data:`INT8_MMA`, ``wt`` holds each
+    position's :func:`kmajor_int8` arena copy.  The descriptor holds raw
+    device pointers; this object keeps the tensors they point into alive.
     """
 
     def __init__(self, layers: Sequence[GroupedLayer], meta: torch.Tensor,
@@ -291,15 +378,18 @@ class GroupedStack:
         device = layers[0].w.device
         n_groups, k0, _ = layers[0].w.shape
         n_layers = len(layers)
-        if meta.shape != (n_groups, 2 + 2 * n_layers) \
+        if meta.shape != (n_groups, 2 + 4 * n_layers) \
                 or meta.dtype != torch.int32 or meta.device != device \
                 or not meta.is_contiguous():
             raise ValueError(
                 f"meta must be a contiguous int32 ({n_groups}, "
-                f"{2 + 2 * n_layers}) tensor on {device}, got {meta.dtype} "
+                f"{2 + 4 * n_layers}) tensor on {device}, got {meta.dtype} "
                 f"{tuple(meta.shape)} on {meta.device}")
         desc = _GroupedDesc(n_layers=n_layers, n_pay=n_pay,
                             meta=meta.data_ptr())
+        self.path = path([layer.w.dtype for layer in layers])
+        self.wt = tuple(kmajor_int8(layer.w) if self.path == INT8_MMA
+                        else None for layer in layers)
         prev = k0
         for l, layer in enumerate(layers):
             g, k, n = layer.w.shape
@@ -322,7 +412,9 @@ class GroupedStack:
                                      f"contiguous on {device}")
             quantized = _layer_mode(layer.w.dtype) != "real"
             desc.pos[l] = _PositionDesc(
-                w=layer.w.data_ptr(), scale=layer.scale.data_ptr(),
+                w=layer.w.data_ptr(),
+                wt=None if self.wt[l] is None else self.wt[l].data_ptr(),
+                scale=layer.scale.data_ptr(),
                 bias=layer.bias.data_ptr(), x_scale=layer.x_scale.data_ptr(),
                 k=k, n=n, mode=MODES[layer.w.dtype],
                 qmax=float(torch.iinfo(layer.w.dtype).max) if quantized
@@ -338,19 +430,29 @@ class GroupedStack:
         self.k0 = k0
         self.n_last = prev
         self.n_pay = n_pay
-        self.width = max([k0] + [layer.w.shape[2] for layer in layers])
-        self.smem_bytes = grouped_smem_bytes(
-            k0, [layer.w.shape[2] for layer in layers])
+        widths = [layer.w.shape[2] for layer in layers]
+        self.width = max([k0] + widths)
+        # The widest true output of a group (meta's n_out column): the f32
+        # tile the int8 path's head epilogue reads.
+        self.n_out = int(meta[:, 1].max())
+        if self.path == INT8_MMA:
+            self.ld = code_stride([k0, *widths[:-1]])
+            self.fld = self.n_out
+        else:
+            self.ld, self.fld = self.width, 0
+        self.smem_bytes = grouped_smem_bytes(k0, widths, self.path,
+                                             self.n_out)
         if self.smem_bytes > SMEM_PER_BLOCK:
             raise ValueError(
                 f"grouped fleet needs {self.smem_bytes} bytes of shared "
                 f"memory per block (> {SMEM_PER_BLOCK})")
 
 
+
 @functools.cache
 def _grouped_entry():
     fn = build.library("grouped_mlp").grouped_mlp_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     return fn
@@ -388,8 +490,9 @@ def grouped_fused_mlp(x: torch.Tensor, stack: GroupedStack,
     if m == 0:
         return out
     err = _grouped_entry()(
-        x.data_ptr(), tgt.data_ptr(), out.data_ptr(), m, g, BLOCK_M,
-        stack.width, ctypes.addressof(stack.desc),
+        x.data_ptr(), tgt.data_ptr(), out.data_ptr(), m, g,
+        int(stack.path == INT8_MMA), stack.ld, stack.fld,
+        ctypes.addressof(stack.desc),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(

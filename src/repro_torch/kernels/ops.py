@@ -161,9 +161,13 @@ def fuse_reason(stack: LayerStack) -> Optional[str]:
 
     The gate is the port kernel's own bill, not the TPU's VMEM budget or its
     lane/row granules: at most ``fused_mlp.MAX_LAYERS`` layers, element-wise
-    activations, weight dtypes the kernel reads, and two f32 activation tiles
-    of ``fused_mlp.BLOCK_M`` rows by the widest layer within Hopper's
-    232,448 bytes of shared memory per block.
+    activations, weight dtypes the kernel reads, and the shared memory of
+    the stack's path (``fused_mlp.path``; ``fused_mlp.smem_bytes``) within
+    Hopper's 232,448 bytes per block: two int8 code tiles of
+    ``fused_mlp.BLOCK_M`` rows by the widest layer input (rounded up to the
+    MMA depth, plus a 16-byte pad) and the kernel's step table when every
+    layer is int8, else two f32 activation tiles of
+    ``fused_mlp.BLOCK_M`` rows by the widest layer.
     """
     if not stack:
         return "empty layer stack"
@@ -180,13 +184,24 @@ def fuse_reason(stack: LayerStack) -> Optional[str]:
         return reason
     widths = [_weight(stack[0][0]).shape[0]] + [_weight(p).shape[1]
                                                 for p, _ in stack]
-    smem = fused_mlp.smem_bytes(widths)
+    path = fused_mlp.path([_weight(p).dtype for p, _ in stack])
+    smem = fused_mlp.smem_bytes(widths, path)
     if smem > fused_mlp.SMEM_PER_BLOCK:
         return (f"the fused kernel needs {smem} bytes of shared memory per "
-                f"block (two f32 activation tiles of {fused_mlp.BLOCK_M} rows "
-                f"x {max(widths)} lanes), over Hopper's "
-                f"{fused_mlp.SMEM_PER_BLOCK} bytes per block")
+                f"block ({_tiles(path, widths[:-1], max(widths))}), over "
+                f"Hopper's {fused_mlp.SMEM_PER_BLOCK} bytes per block")
     return None
+
+
+def _tiles(path: str, inputs: Sequence[int], widest: int,
+           rows: int = fused_mlp.BLOCK_M) -> str:
+    """The tiles of a path's shared-memory bill, in words."""
+    if path == fused_mlp.INT8_MMA:
+        return (f"two int8 code tiles of {rows} rows x "
+                f"{fused_mlp.code_stride(inputs)} bytes and the kernel's "
+                "step table")
+    return (f"two f32 activation tiles of {fused_mlp.BLOCK_M} rows x "
+            f"{widest} lanes")
 
 
 def can_fuse(stack: LayerStack) -> bool:
@@ -197,9 +212,11 @@ def can_fuse(stack: LayerStack) -> bool:
 
 def prepare_fused(stack: LayerStack) -> FusedStack:
     """Lay a fusable stack out for the kernel: per-column f32 bias and
-    combined ``x_scale * w_scale``, the activation scale as a float, and the
-    launch descriptor.  Costs a device-to-host read per quantized layer, so
-    a caller that launches repeatedly (the serving engine) prepares once."""
+    combined ``x_scale * w_scale``, the activation scale as a float, the
+    K-major int8 weight copies of an all-int8 stack (``fused_mlp.path``) and
+    the launch descriptor.  Costs a device-to-host read per quantized layer,
+    so a caller that launches repeatedly (the serving engine) prepares
+    once."""
     reason = fuse_reason(stack)
     if reason is not None:
         raise ValueError(f"layer stack is not fusable: {reason}")
@@ -280,10 +297,12 @@ def grouped_fuse_reason(stacks: Sequence[LayerStack], *,
     FINAL-layer softmax, which the grouped kernel masks), the packed arena
     needs one weight dtype per layer position (one kernel mode), at most
     ``fused_mlp.MAX_LAYERS`` positions, and the kernel's shared-memory bill
-    (two f32 tiles of ``fused_mlp.BLOCK_M`` rows by the widest union width)
-    within Hopper's 232,448 bytes per block.  The shared-memory message
-    carries the per-group slab accounting, so a ``megakernel=True`` failure
-    names the group that widens the union.
+    for the fleet's path (``fused_mlp.grouped_smem_bytes``: int8 code tiles
+    and one f32 epilogue tile when every position is int8, else two f32
+    tiles of ``fused_mlp.BLOCK_M`` rows by the widest union width) within
+    Hopper's 232,448 bytes per block.  The shared-memory message carries the
+    per-group slab accounting, so a ``megakernel=True`` failure names the
+    group that widens the union.
     """
     if not stacks:
         return "no layer stacks"
@@ -315,16 +334,22 @@ def grouped_fuse_reason(stacks: Sequence[LayerStack], *,
                     "across groups; "
                     "the packed arena needs one kernel mode per position")
     k0u, widths = _grouped_widths(stacks, k0)
-    smem = fused_mlp.grouped_smem_bytes(k0u, [n for _, n in widths])
+    path = fused_mlp.path([_weight(s[l][0]).dtype for s in stacks
+                           for l in range(len(s))])
+    outs = [n for _, n in widths]
+    smem = fused_mlp.grouped_smem_bytes(
+        k0u, outs, path, max(int(_weight(s[-1][0]).shape[1])
+                             for s in stacks))
     if smem > fused_mlp.SMEM_PER_BLOCK:
         slabs = [(names[g], sum(_weight(p).numel() * _weight(p).element_size()
                                 for p, _ in stack))
                  for g, stack in enumerate(stacks)]
         widest = max(slabs, key=lambda s: s[1])[0]
         detail = ", ".join(f"{n}={b}B" for n, b in slabs)
+        tiles = _tiles(path, [k0u] + outs[:-1], max([k0u] + outs),
+                       fused_mlp.GROUPED_ROWS)
         return (f"the grouped kernel needs {smem} bytes of shared memory per "
-                f"block (two f32 activation tiles of {fused_mlp.BLOCK_M} rows "
-                f"x {max([k0u] + [n for _, n in widths])} union lanes), over "
+                f"block ({tiles}, union widths), over "
                 f"Hopper's {fused_mlp.SMEM_PER_BLOCK} bytes per block "
                 f"(per-group slabs: {detail}; widest slab {widest!r} drives "
                 "the union arena) — serve this fleet per group")
@@ -368,10 +393,14 @@ def build_grouped_plan(
 
     Returns ``(plan, arrays)``: the hashable static plan and a dict of
     tensors on the stacks' device — per-position ``w``/``scale``/``bias``/
-    ``x_scale`` arenas, the (G, 2+2L) int32 ``meta`` table, and the
-    per-group true ``stacks`` params (what the plain version runs).  Pad
-    slots are zeros (they meet zero weight rows); skip slots keep
-    ``x_scale`` at 1 so quantizing them never divides by zero.
+    ``x_scale`` arenas, the (G, 2+2L) int32 ``meta`` table (the reference's
+    layout: kind, n_out, act ids, skips), the kernel's (G, 2+4L)
+    ``kernel_meta`` (``meta`` followed by each group's true input and
+    output width per position, so each product runs at its own widths; a
+    skip slot carries the group's n_out in both), and the per-group true
+    ``stacks`` params (what the plain version runs).  Pad slots are zeros
+    (they meet zero weight rows); skip slots keep ``x_scale`` at 1 so
+    quantizing them never divides by zero.
 
     ``k0`` widens the union input beyond the widest true input (serving
     passes the window width, so a head whose ``prepare`` drops trailing
@@ -399,6 +428,9 @@ def build_grouped_plan(
         "w": [], "scale": [], "bias": [], "x_scale": []}
     act_ids = torch.zeros((n_groups, n_layers), dtype=torch.int32)
     skips = torch.zeros((n_groups, n_layers), dtype=torch.int32)
+    true_k = torch.tensor(n_outs, dtype=torch.int32)[:, None].repeat(
+        1, n_layers)
+    true_n = true_k.clone()
     for l, (k, n) in enumerate(widths):
         dtype = next(_weight(s[l][0]).dtype for s in stacks if len(s) > l)
         mode = fused_mlp._layer_mode(dtype)
@@ -416,6 +448,7 @@ def build_grouped_plan(
             p, act = stack[l]
             wg = _weight(p).cpu()
             kg, ng = wg.shape
+            true_k[g, l], true_n[g, l] = kg, ng
             w[g, :kg, :ng] = wg
             if "qw" in p:
                 sc[g, 0, :ng] = (p["x_scale"] * p["w_scale"]).cpu() \
@@ -435,6 +468,8 @@ def build_grouped_plan(
                       torch.tensor(n_outs, dtype=torch.int32)[:, None],
                       act_ids, skips], dim=1)
     arrays = dict(arenas, meta=meta.to(device),
+                  kernel_meta=torch.cat([meta, true_k, true_n], dim=1)
+                  .to(device),
                   stacks=[[p for p, _ in stack] for stack in stacks])
     plan = GroupedPlan(
         n_groups=n_groups, k0=k0u, n_layers=n_layers,
@@ -448,15 +483,17 @@ def build_grouped_plan(
 
 
 def prepare_grouped(plan: GroupedPlan, arrays: Dict) -> GroupedStack:
-    """Lay a packed fleet out for the grouped kernel: its arenas, meta table
-    and launch descriptor.  A caller that launches repeatedly (the serving
-    engine's mega pack) prepares once and keeps the result, which owns the
-    tensors the descriptor points into."""
+    """Lay a packed fleet out for the grouped kernel: its arenas, their
+    K-major int8 copies (when every position is int8), the kernel's meta
+    table with the true widths and the launch descriptor.  Costs a
+    device-to-host read of the table, so a caller that launches repeatedly
+    (the serving engine's mega pack) prepares once and keeps the result,
+    which owns the tensors the descriptor points into."""
     return GroupedStack(
         [GroupedLayer(w=arrays["w"][l], bias=arrays["bias"][l],
                       scale=arrays["scale"][l], x_scale=arrays["x_scale"][l])
          for l in range(plan.n_layers)],
-        arrays["meta"], plan.payload_width)
+        arrays["kernel_meta"], plan.payload_width)
 
 
 def _grouped_acts_batched(y: torch.Tensor, plan: GroupedPlan, l: int,

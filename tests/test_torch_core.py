@@ -316,6 +316,96 @@ def test_qmatmul_path_switch_and_plain_version(m):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _mixed_stack():
+    """The detector with its last layer REAL and the rest SINT: a stack
+    whose layers are not all int8."""
+    sint = ops.dense_stack(*model_pair("detector", "SINT")[2:])
+    real = ops.dense_stack(*model_pair("detector", "REAL")[2:])
+    return sint[:3] + real[3:]
+
+
+@pytest.mark.parametrize("kind,scheme", [
+    (kind, scheme) for kind in ("autoencoder", "detector", "37-13-5-3")
+    for scheme in SCHEMES] + [("detector", "mixed")])
+def test_fused_path_and_kmajor_weight_copies(kind, scheme):
+    """``fused_mlp.path`` sends an all-int8 stack to the tensor-core kernel
+    and any other to the f32-tile kernel.  On the int8 path the plan-time
+    K-major copy of each weight holds it transposed exactly and is zero in
+    every pad (columns to a multiple of 8, depth to a multiple of 32); the
+    layout's shared-memory bill and tile stride are its path's."""
+    if scheme == "mixed":
+        stack = _mixed_stack()
+    elif kind == "37-13-5-3":
+        _, _, tm, tp = small_pair([13, 5, 3], ["relu", "tanh", "linear"], 37,
+                                  scheme, 0)
+        stack = ops.dense_stack(tm, tp)
+    else:
+        stack = ops.dense_stack(*model_pair(kind, scheme)[2:])
+    prepared = ops.prepare_fused(stack)
+    want = fused_mlp.INT8_MMA if scheme == "SINT" else fused_mlp.F32_TILE
+    assert fused_mlp.path(prepared) == prepared.path == want
+    widths = [prepared.k0] + [layer.w.shape[1] for layer in prepared.layers]
+    assert prepared.smem_bytes == fused_mlp.smem_bytes(widths, want)
+    if want == fused_mlp.F32_TILE:
+        assert prepared.wt == (None,) * len(stack)
+        assert prepared.ld == max(widths)
+        return
+    assert prepared.ld == -(-max(widths[:-1]) // 32) * 32 + 16
+    for (p, _), wt in zip(stack, prepared.wt):
+        k, n = p["qw"].shape
+        assert wt.dtype == torch.int8
+        assert wt.shape == (-(-n // 8) * 8, -(-k // 32) * 32)
+        assert torch.equal(wt[:n, :k], p["qw"].T)
+        assert not wt[n:].any() and not wt[:, k:].any()
+
+
+def _quantize_by_reciprocal(h, scale, qmax):
+    """csrc/mlp_common.cuh::quantize in numpy float32 (whose operations
+    round to nearest, as the kernels' intrinsics do): zero passes, the
+    product with the correctly rounded reciprocal where it lies more than
+    |a| * 2**-20 from every half-integer, the IEEE quotient elsewhere."""
+    f32 = np.float32
+    inv = f32(1) / scale
+    if not f32(2.0**-125) <= inv <= f32(2.0**125):
+        inv = f32(np.nan)
+    a = h * inv
+    edge = f32(0.5) - np.abs(a - np.rint(a))
+    with np.errstate(invalid="ignore"):
+        t = np.where(edge > np.abs(a) * f32(2.0**-20), a, h / scale)
+    t = np.where(h == 0, h, t)
+    return np.minimum(np.maximum(np.rint(t), -qmax), qmax)
+
+
+@pytest.mark.parametrize("qmax", (127, 32767, 2147483647))
+def test_quantize_rule_equals_ieee_division(qmax):
+    """The int8 kernels' quantize finds rint(h / scale) mostly without the
+    division: equal to the plain version's IEEE quotient for every input,
+    here random ones and ones within 40 ulp of a half-integer quotient (the
+    only places where the product and the quotient can round apart)."""
+    rng = np.random.default_rng(qmax)
+    f32 = np.float32
+    qmax = f32(qmax)
+    for _ in range(8):
+        scale = f32(10 ** rng.uniform(-6, 3))
+        m = rng.integers(-int(min(qmax, 2**24)), int(min(qmax, 2**24)) + 1,
+                         100_000).astype(np.float64)
+        half = ((m + 0.5) * float(scale)).astype(f32)
+        steps = rng.integers(-40, 41, half.shape)
+        near = half.copy()
+        for _ in range(40):
+            move = np.abs(steps) > 0
+            near = np.where(move, np.nextafter(
+                near, np.where(steps > 0, np.inf, -np.inf).astype(f32)), near)
+            steps = steps - np.sign(steps)
+        spread = (rng.standard_normal(100_000) * float(scale)
+                  * 10 ** rng.uniform(0, 3)).astype(f32)
+        for h in (near, half, spread, np.zeros(4, f32)):
+            with np.errstate(over="ignore"):
+                want = np.minimum(np.maximum(np.rint(h / scale), -qmax), qmax)
+                got = _quantize_by_reciprocal(h, scale, qmax)
+            np.testing.assert_array_equal(got, want)
+
+
 def test_kernel_backend_raises_on_cpu_tensors():
     _, _, tm, tp = model_pair("detector", "SINT")
     stack = ops.dense_stack(tm, tp)
@@ -346,10 +436,12 @@ def test_fuse_reason_uses_the_kernels_shared_memory_bill():
     assert "softmax" in reason
     with pytest.raises(ValueError, match="softmax"):
         ops.fused_forward(torch.zeros((2, 16)), ops.dense_stack(tm, tp))
-    # 2 tiles x 16 rows x 2048 f32 lanes = 262,144 B > 232,448 B per block.
-    _, _, tm, tp = small_pair([2048, 2], ["relu", "linear"], 16, "SINT", 0)
+    # An all-int8 stack's bill is two int8 code tiles and the kernel's step
+    # table: 2 tiles x 8 rows x (16384 + 16) B + 448 B = 262,848 B >
+    # 232,448 B per block.
+    _, _, tm, tp = small_pair([16384, 2], ["relu", "linear"], 16, "SINT", 0)
     reason = ops.fuse_reason(ops.dense_stack(tm, tp))
-    assert "262144 bytes" in reason and "232448 bytes" in reason
+    assert "262848 bytes" in reason and "232448 bytes" in reason
     assert not ops.can_fuse(ops.dense_stack(tm, tp))
-    # The f32 autoencoder fuses: its widest tiles take 2 x 16 x 400 x 4 B.
-    assert fused_mlp.smem_bytes([400, 64, 16, 64, 400]) == 51200
+    # The f32 autoencoder fuses: its widest tiles take 2 x 8 x 400 x 4 B.
+    assert fused_mlp.smem_bytes([400, 64, 16, 64, 400]) == 25600

@@ -201,9 +201,9 @@ def test_grouped_fuse_reason():
     hidden = jops.dense_stack(jm, jm.init_params(jax.random.PRNGKey(0)))
     assert "layer 0 activation 'softmax' is not element-wise" in \
         ops.grouped_fuse_reason(tstacks([hidden]))
-    # A union tile over Hopper's shared-memory bill: 2 tiles x 16 rows x
-    # 2048 f32 lanes = 262,144 B > 232,448 B; the message names the slabs.
-    jm = jsequential([JL.Input(), JL.Dense(units=2048, activation="relu"),
+    # A union tile over Hopper's shared-memory bill: 2 tiles x 8 rows x
+    # 4096 f32 lanes = 262,144 B > 232,448 B; the message names the slabs.
+    jm = jsequential([JL.Input(), JL.Dense(units=4096, activation="relu"),
                       JL.Dense(units=2, activation="linear")], (8,))
     wide = jops.dense_stack(jm, jm.init_params(jax.random.PRNGKey(0)))
     reason = ops.grouped_fuse_reason(tstacks([jstacks(mixed_groups("REAL"))[0],
@@ -212,12 +212,55 @@ def test_grouped_fuse_reason():
     assert "262144 bytes" in reason and "232448 bytes" in reason
     assert "widest slab 'wide'" in reason and "clf=" in reason
     # The four §7 bodies at full width pack in every scheme: their widest
-    # union width is the autoencoder's 400 lanes (51,200 B).
+    # union width is the autoencoder's 400 lanes (25,600 B).
     for scheme in SCHEMES:
         assert ops.grouped_fuse_reason(tstacks(
             [jops.dense_stack(m, p) for m, p in section7(scheme, False)]),
             k0=400) is None
-    assert fused_mlp.grouped_smem_bytes(400, [64, 32, 64, 400]) == 51200
+    assert fused_mlp.grouped_smem_bytes(400, [64, 32, 64, 400]) == 25600
+
+
+@pytest.mark.parametrize("softmax", (False, True))
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_kernel_meta_true_widths_and_kmajor_arenas(scheme, softmax):
+    """The kernel's meta table is the reference's followed by each group's
+    true (k, n) per position (the group's n_out on a skip slot), read
+    against the arenas they came from; on the int8 path the plan-time
+    K-major copy of each arena holds every slab transposed exactly, zero in
+    every pad (past a group's true widths, and to the MMA granules)."""
+    stacks, kinds = fleet(scheme, softmax)
+    plan, arrays = ops.build_grouped_plan(tstacks(stacks), kinds, k0=8)
+    n_layers = plan.n_layers
+    meta = arrays["kernel_meta"]
+    assert meta.dtype == torch.int32
+    assert meta.shape == (plan.n_groups, 2 + 4 * n_layers)
+    assert torch.equal(meta[:, :2 + 2 * n_layers], arrays["meta"])
+    prepared = ops.prepare_grouped(plan, arrays)
+    want = fused_mlp.INT8_MMA if scheme == "SINT" else fused_mlp.F32_TILE
+    assert fused_mlp.path(prepared) == prepared.path == want
+    assert torch.equal(prepared.meta, meta)
+    for g, stack in enumerate(arrays["stacks"]):
+        for l in range(n_layers):
+            k = int(meta[g, 2 + 2 * n_layers + l])
+            n = int(meta[g, 2 + 3 * n_layers + l])
+            slab = arrays["w"][l][g]
+            if l < len(stack):
+                w = stack[l]["qw"] if "qw" in stack[l] else stack[l]["w"]
+                assert (k, n) == tuple(w.shape)
+                assert torch.equal(slab[:k, :n], w.to(slab.dtype))
+            else:
+                assert k == n == plan.n_outs[g] and plan.skips[g][l] == 1
+                k = n = 0
+            assert not slab[k:].any() and not slab[:, n:].any()
+            wt = prepared.wt[l]
+            if want == fused_mlp.F32_TILE:
+                assert wt is None
+                continue
+            ku, nu = plan.widths[l]
+            assert wt.shape == (plan.n_groups, -(-nu // 8) * 8,
+                                -(-ku // 32) * 32)
+            assert torch.equal(wt[g, :nu, :ku], slab.T)
+            assert not wt[g, n:].any() and not wt[g, :, k:].any()
 
 
 # ---------------------------------------------------------------------------

@@ -92,18 +92,88 @@ def test_fused_mlp_matches_plain(kind, scheme, m):
     check(scheme, got, ref.fused_mlp_ref(x, stack))
 
 
-def act_model(acts, widths, scheme):
+def act_model(acts, widths, scheme, k0=400, seed=5):
     model = sequential([TL.Input()] + [TL.Dense(units=w, activation=a)
-                                       for w, a in zip(widths, acts)], (400,))
-    params = model.init_params(torch.Generator().manual_seed(5),
+                                       for w, a in zip(widths, acts)], (k0,))
+    params = model.init_params(torch.Generator().manual_seed(seed),
                                device="cuda")
-    if scheme == "SINT":
-        calib = np.random.default_rng(5).standard_normal(
-            (8, 400)).astype(np.float32)
+    if scheme != "REAL":
+        calib = np.random.default_rng(seed).standard_normal(
+            (8, k0)).astype(np.float32)
         params = quantize.quantize_params(
             model, params, scheme,
             calibration=quantize.calibration_samples(calib, k=8))
     return ops.dense_stack(model, params)
+
+
+@pytest.mark.parametrize("m", (1, 7, 8, 9, 15, 16, 17, 127, 128, 129))
+@pytest.mark.parametrize("scheme", ("REAL", "SINT"))
+@pytest.mark.parametrize("kind", ("autoencoder", "detector"))
+def test_fused_mlp_tile_edges(kind, scheme, m):
+    """Both paths at the edges of the 8-row block and of the m16 tile whose
+    upper half it fills: M = 1, 7, 8, 9, 15, 16, 17, 127, 128, 129."""
+    model, params = card_model(kind, scheme)
+    stack = ops.dense_stack(model, params)
+    prepared = ops.prepare_fused(stack)
+    assert fused_mlp.path(prepared) == (
+        fused_mlp.INT8_MMA if scheme == "SINT" else fused_mlp.F32_TILE)
+    x = torch.randn((m, 400), generator=torch.Generator().manual_seed(m)) \
+        .cuda()
+    check(scheme, fused_mlp.fused_mlp(x, prepared),
+          ref.fused_mlp_ref(x, stack))
+
+
+@pytest.mark.parametrize("m", (1, 9, 1000))
+@pytest.mark.parametrize("scheme", ("REAL", "SINT", "INT", "DINT"))
+def test_fused_mlp_widths_off_the_granules(scheme, m):
+    """A 37-13-5-3 stack: K not a multiple of 32 (nor of 4, so the input is
+    staged lane by lane), N not a multiple of 8."""
+    stack = act_model(["relu", "relu", "linear"], [13, 5, 3], scheme, k0=37)
+    x = torch.randn((m, 37), generator=torch.Generator().manual_seed(m)) \
+        .cuda()
+    before = fused_mlp.launches
+    got = ops.fused_forward(x, stack)
+    assert fused_mlp.launches == before + 1
+    check(scheme, got, ref.fused_mlp_ref(x, stack))
+
+
+def test_fused_mlp_mixed_stack_runs_the_f32_tile_path():
+    """The detector with its last layer REAL and the others SINT: not all
+    int8, so fused_mlp.path sends it to the f32-tile kernel, whose SINT
+    layers dot their codes in int32 (REAL tolerance for the REAL layer's
+    summation order; it goes last because ahead of a SINT layer a last-bit
+    difference can move a code by a whole step, in the plain version too)."""
+    sint = ops.dense_stack(*card_model("detector", "SINT"))
+    real = ops.dense_stack(*card_model("detector", "REAL"))
+    stack = sint[:3] + real[3:]
+    prepared = ops.prepare_fused(stack)
+    assert fused_mlp.path(prepared) == fused_mlp.F32_TILE
+    for m in (1000, 37):
+        x = torch.randn((m, 400),
+                        generator=torch.Generator().manual_seed(m)).cuda()
+        check("REAL", fused_mlp.fused_mlp(x, prepared),
+              ref.fused_mlp_ref(x, stack))
+
+
+@pytest.mark.parametrize("scheme", ("REAL", "SINT"))
+def test_fused_and_grouped_calls_are_bit_equal(scheme):
+    """Two calls of each kernel on the same inputs give the same bits (no
+    atomics, a fixed order on both paths)."""
+    stack = ops.dense_stack(*card_model("autoencoder", scheme))
+    prepared = ops.prepare_fused(stack)
+    x = torch.randn((1000, 400),
+                    generator=torch.Generator().manual_seed(3)).cuda()
+    assert torch.equal(fused_mlp.fused_mlp(x, prepared),
+                       fused_mlp.fused_mlp(x, prepared))
+    stacks = [ops.dense_stack(*card_model(kind, scheme, seed=i))
+              for i, kind in enumerate(FLEET)]
+    plan, arrays = ops.build_grouped_plan(stacks, FLEET_KINDS, k0=400)
+    grouped = ops.prepare_grouped(plan, arrays)
+    g = torch.Generator().manual_seed(4)
+    xg = torch.randn((plan.n_groups, 1000, plan.k0), generator=g).cuda()
+    tgt = torch.randn((plan.n_groups, 1000, plan.n_out), generator=g).cuda()
+    assert torch.equal(fused_mlp.grouped_fused_mlp(xg, grouped, tgt),
+                       fused_mlp.grouped_fused_mlp(xg, grouped, tgt))
 
 
 def test_fused_mlp_continuous_activations():
@@ -254,6 +324,29 @@ def test_grouped_mlp_final_softmax():
     assert (got[0, :, 3:] == 0).all()
     torch.testing.assert_close(got[0, :, :3].sum(-1),
                                torch.ones(1000, device="cuda"))
+
+
+@pytest.mark.parametrize("m", (1, 9, 1000))
+@pytest.mark.parametrize("scheme", ("REAL", "SINT"))
+def test_grouped_mlp_true_widths(scheme, m):
+    """Three groups whose true widths differ at every position (inputs 400,
+    397 and 250 of the 400-wide union; depths 4, 3 and 4, so one group skips
+    the last position): each product runs at its own widths, held to the
+    per-group plain version."""
+    stacks = [act_model(["relu", "relu", "relu", "linear"], [64, 32, 16, 2],
+                        scheme, seed=1),
+              act_model(["relu", "relu", "linear"], [45, 21, 7],
+                        scheme, k0=397, seed=2),
+              act_model(["relu", "relu", "relu", "linear"], [96, 40, 33, 11],
+                        scheme, k0=250, seed=3)]
+    plan, got, want = run_grouped(stacks, (0, 1, 0), m)
+    assert plan.true_k0s == (400, 397, 250)
+    assert plan.skips == ((0, 0, 0, 0), (0, 0, 0, 1), (0, 0, 0, 0))
+    if scheme == "SINT":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    else:
+        check(scheme, got, want)
 
 
 def test_grouped_mlp_skip_heavy():
