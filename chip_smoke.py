@@ -116,6 +116,40 @@ stdout; a failing phase raises and the script exits non-zero:
 9. late_profile — phase 5's sessions again, now after the Mamba-2 runs
              (where sessions without the lead-in lost records every
              time), checked the same way.
+10. framework — the ICSML framework itself on the card.  (m) the SINT
+             classifier of run (a) through apply, apply_planned (the §4.2.1
+             arena) and MultipartInference at 1, 2, 4 and 8 segments, all
+             torch.equal to apply; (n) the §6.3 demo model (mobilenet_ish
+             of benchmarks/multipart_bench.py: Conv2D-s2 / BatchNorm-relu /
+             DepthwiseConv2D / BatchNorm-relu at 8, 16, 32 channels, pool,
+             Dense-10 softmax), REAL, with cuDNN's TF32 flag at PyTorch's
+             default (on) for the run: apply_planned and every segment count
+             within 1e-6 relative of apply, apply within 1e-5 of the CPU
+             plain path (the layers keep IEEE f32); both print per-segment
+             wall µs and totals (CUDA events, MULTIPART_REPS inferences),
+             segment FLOPs and the planned and naive arena bytes, and one
+             4-segment inference under torch.profiler (device events, busy
+             share, device time by kernel); (o) one
+             plant of the port's MSF simulator through ScanCycleRuntime for
+             N_CYCLES cycles with a trivial control task and (m)'s model as
+             a 4-segment SlidingWindowDetector on the card: every inference
+             4 cycles late, predictions equal to single-shot apply of the
+             same windows, cycle times against the 100 ms budget; (p) the
+             IEC 61131-3 export of examples/export_st.py::verify_export:
+             the SINT classifier, the SINT autoencoder and the REAL
+             autoencoder (score heads calibrated on the off-cadence windows)
+             exported with the ingest normalization baked in, the 1024-plant
+             fleet served through StreamEngine on the card (one fused_mlp
+             launch per verdict step, checked) and every window of a seeded
+             sample of REPLAY_PLANTS plants replayed through the emulated
+             block in one batched call: 0 failures; SINT also 0 borderline
+             windows and a body difference of 0.0 (the block's outputs
+             bit-equal to numpy_mlp_ref, PRED and THRESHOLD equal to the
+             card engine's, CONF/SCORE within 1e-4 relative), and for the
+             classifier the engine's own logits, fused_mlp's outputs,
+             bit-equal to numpy_mlp_ref too (max_engine_diff 0.0; the
+             autoencoders' engine step returns only the score).  No
+             verdict diversity is asserted: the weights are random.
 
 Then the wall seconds of each phase and in all (``{"phase": "seconds"}``),
 the kernels summary line (``{"kernels": [...]}``, launch counts from
@@ -186,6 +220,10 @@ GROUPED_DESIGN = ("int8_mma: 16-row blocks, grid (M / 16, G), each group at "
                   "int8_mma otherwise; f32_tile: 8-row blocks; masked "
                   "softmax and the head epilogue from the group's f32 tile")
 F32_LOGIT_TOL = 1e-3
+# Phase 10: inferences timed per segment count, and the plants whose every
+# window the emulated ST block replays.
+MULTIPART_REPS = 20
+REPLAY_PLANTS = 256
 
 
 def emit(obj):
@@ -461,8 +499,11 @@ def main():
                                      ModelGroup, Request, StreamEngine)
     from repro_torch.sim import (ClassifierHead, ForecastHead, MarginHead,
                                  ReconstructionHead, build_autoencoder,
-                                 build_detector, build_forecaster,
+                                 build_detector, build_fleet, build_forecaster,
                                  build_margin_model, fleet_readings)
+    from repro_torch.codegen import export_st, verify_export, window_starts
+    from repro_torch.core import memory as memlib
+    from repro_torch.core import runtime
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1005,9 +1046,9 @@ def main():
     for shape, (bsz, t) in SSD_SHAPES.items():
         args = ssd_inputs(bsz, t, seed=t)
         got, state = ssd_scan.ssd_scan(*args, return_state=True)
-        sequential = shape == "vs_sequential"
+        against_recurrence = shape == "vs_sequential"
         plain = functools.partial(ops.ssd, *args, backend=(
-            "ref" if sequential else "chunked"))
+            "ref" if against_recurrence else "chunked"))
         err = ssd_close(shape, got, plain())
         state_err = ssd_close(f"{shape} final state", state,
                               ref.ssd_final_state_ref(*args[:4]))
@@ -1015,9 +1056,9 @@ def main():
         row = {"shape": shape, "b": bsz, "t": t, "h": mcfg.ssm_heads,
                "p": mcfg.ssm_headdim, "n": mcfg.ssm_state,
                "g": mcfg.ssm_groups,
-               "plain": "ssd_scan_ref" if sequential else "ssd_chunked_ref",
+               "plain": "ssd_scan_ref" if against_recurrence else "ssd_chunked_ref",
                "max_abs_err": err, "state_max_abs_err": state_err}
-        if not sequential:
+        if not against_recurrence:
             reps = 20 if t * bsz <= 8192 else 5
 
             def call():
@@ -1517,6 +1558,236 @@ def main():
             "grouped_mlp_kernel", late=True)
 
     phase_done("late_profile")
+    # -- 10. framework: the ICSML core and the IEC 61131-3 export -----------
+    def event_ms(fn):
+        """``fn()`` between two CUDA events, waited for: (result, ms)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def multipart(run, model, params, x, single, same):
+        """MultipartInference at 1, 2, 4, 8 segments against ``single``
+        (``same(got, run_name)`` raises on a mismatch), timed per segment."""
+        _, apply_ms = event_ms(lambda: model.apply(params, x))
+        planned = model.apply_planned(params, x)
+        same(planned, f"{run} apply_planned")
+        mem = memlib.activation_bytes(model.graph, model.input_shape)
+        rows = []
+        for n in (1, 2, 4, 8):
+            mi = runtime.MultipartInference(model, params, n)
+            same(mi.run_all(x), f"{run} {n} segments")
+            seg_ms = [[] for _ in range(mi.n_segments)]
+            for _ in range(MULTIPART_REPS):
+                state = mi.start(x)
+                for k in range(mi.n_segments):
+                    state, ms = event_ms(lambda: mi.step(state))
+                    seg_ms[k].append(ms)
+                same(mi.output(state), f"{run} {n} segments, timed")
+            rows.append({"requested": n, "segments": mi.n_segments,
+                         "bounds": mi.bounds,
+                         "segment_flops": mi.segment_flops(),
+                         "segment_us": [1e3 * float(np.mean(m))
+                                        for m in seg_ms],
+                         "total_us": 1e3 * float(np.sum([np.mean(m)
+                                                        for m in seg_ms]))})
+        emit({"phase": "framework", "run": run, "nvidia_smi": smi,
+              "apply_us": 1e3 * apply_ms, "reps": MULTIPART_REPS,
+              "planned_arena_bytes": mem["planned"],
+              "naive_arena_bytes": mem["naive"],
+              "param_bytes": model.param_bytes(), "flops": model.flops(),
+              "multipart": rows})
+
+    def profile_inference(run, model, params, x, n_segments):
+        """Device events of one multipart inference under torch.profiler
+        (see device_events): where a segment's time goes."""
+        mi = runtime.MultipartInference(model, params, n_segments)
+        mi.run_all(x)
+        torch.cuda.synchronize()
+        timing = {}
+
+        def one():
+            t0 = time.perf_counter()
+            mi.run_all(x)
+            torch.cuda.synchronize()
+            timing["wall"] = time.perf_counter() - t0
+
+        events = device_events(one)
+        by_name = {}
+        for name, us in events:
+            by_name[name] = by_name.get(name, 0.0) + us
+        busy_us = sum(by_name.values())
+        emit({"phase": "framework", "run": run, "nvidia_smi": smi,
+              "segments": mi.n_segments,
+              "device_events": len(events), "device_busy_us": busy_us,
+              "profiled_wall_us": timing["wall"] * 1e6,
+              "device_busy_share": busy_us / 1e6 / timing["wall"],
+              "top_device_us": sorted(by_name.items(),
+                                      key=lambda kv: -kv[1])[:8]})
+
+    # (m) the §7 detector of run (a), multipart.
+    det_model, det_params = cls_sint
+    x_det = windows[0]
+    det_single = det_model.apply(det_params, x_det)
+
+    def det_same(got, what):
+        if not torch.equal(got, det_single):
+            raise AssertionError(f"{what}: not torch.equal to apply")
+
+    multipart("m_sint_detector_multipart", det_model, det_params, x_det,
+              det_single, det_same)
+    profile_inference("m_profile", det_model, det_params, x_det, 4)
+
+    # (n) the §6.3 demo model, REAL, with cuDNN's TF32 flag on.
+    conv_layers = [L.Input(features=(16, 16, 3))]
+    for ch in (8, 16, 32):
+        conv_layers += [L.Conv2D(filters=ch, kernel_size=(3, 3),
+                                 strides=(2, 2)),
+                        L.BatchNorm(activation="relu"),
+                        L.DepthwiseConv2D(kernel_size=(3, 3)),
+                        L.BatchNorm(activation="relu")]
+    conv_model = sequential(conv_layers + [
+        L.GlobalAvgPool(), L.Dense(units=10, activation="softmax")],
+        (16, 16, 3))
+    conv_params = conv_model.init_params(torch.Generator().manual_seed(5),
+                                         device=dev)
+    conv_rng = np.random.default_rng(5)
+    for p in conv_params.values():    # nonzero biases and statistics
+        for k, v in p.items():
+            noise = 0.1 * conv_rng.standard_normal(tuple(v.shape))
+            v += torch.from_numpy(np.abs(noise) if k == "var" else noise
+                                  ).to(v)
+    x_conv = torch.from_numpy(conv_rng.standard_normal((16, 16, 3)).astype(
+        np.float32)).to(dev)
+    cpu_params = {u: {k: v.cpu() for k, v in p.items()}
+                  for u, p in conv_params.items()}
+    conv_cpu = conv_model.apply(cpu_params, x_conv.cpu())
+    conv_bit_equal = {}
+    torch.backends.cudnn.allow_tf32 = True
+    conv_single = conv_model.apply(conv_params, x_conv)
+
+    def conv_same(got, what):
+        err = float((got - conv_single).abs().max()
+                    / conv_single.abs().max())
+        if err > 1e-6:
+            raise AssertionError(f"{what}: {err} relative from apply")
+        conv_bit_equal[what] = bool(torch.equal(got, conv_single))
+
+    multipart("n_real_mobilenet_ish_multipart_tf32_flag_on", conv_model,
+              conv_params, x_conv, conv_single, conv_same)
+    profile_inference("n_profile", conv_model, conv_params, x_conv, 4)
+    torch.backends.cudnn.allow_tf32 = False
+    conv_err = float((conv_single.cpu() - conv_cpu).abs().max()
+                     / conv_cpu.abs().max())
+    if conv_err > 1e-5:
+        raise AssertionError(f"(n): apply on the card is {conv_err} "
+                             "relative from the CPU: not IEEE f32")
+    emit({"phase": "framework", "run": "n_checks", "nvidia_smi": smi,
+          "card_vs_cpu_rel_err": conv_err, "bit_equal_to_apply":
+          conv_bit_equal})
+
+    # (o) the scan-cycle runtime: one plant, a trivial control task, (m)'s
+    # detector in 4 segments.
+    plant = build_fleet(["tb0-spoof"], seed=11)[0]
+    plant_raw = np.array([(r.tb0_meas, r.wd_meas) for r in
+                          (plant.step() for _ in range(N_CYCLES))],
+                         np.float32)
+    plant_readings = ((plant_raw - np.asarray(spec.NORM_MEAN, np.float32))
+                      / np.asarray(spec.NORM_STD, np.float32))
+
+    def control(reading, state):
+        return np.array([0.5 * (1.0 - float(reading[1]))], np.float32), state
+
+    detector = runtime.SlidingWindowDetector(
+        det_model, det_params, window=spec.WINDOW,
+        n_features=spec.N_FEATURES, n_segments=4)
+    results = []
+    tick = detector.tick
+
+    def recorded_tick(cycle):
+        result = tick(cycle)
+        if result is not None:
+            results.append(result)
+        return result
+
+    detector.tick = recorded_tick
+    scan = runtime.ScanCycleRuntime(control, detector, cycle_budget_s=0.1)
+    log = scan.run(list(plant_readings))
+    n_inferences = (N_CYCLES - spec.WINDOW + 1) // 4
+    if len(results) != n_inferences or any(lat != 4
+                                           for _, _, lat in results):
+        raise AssertionError(f"(o): {len(results)} inferences (expected "
+                             f"{n_inferences}), latencies "
+                             f"{sorted({lat for _, _, lat in results})}")
+    starts = [c - 3 for c, _, _ in results]
+    scan_windows = torch.from_numpy(np.stack([
+        plant_readings[s + 1 - spec.WINDOW:s + 1].reshape(-1)
+        for s in starts])).to(dev)
+    single_preds = det_model.apply(det_params, scan_windows).argmax(
+        dim=-1).cpu().tolist()
+    if [p for _, p, _ in results] != single_preds or log.detections != [
+            (c, p) for c, p, _ in results if p != 0]:
+        raise AssertionError("(o): predictions differ from single-shot "
+                             "apply of the same windows")
+    summary = log.summary()
+    emit({"phase": "framework", "run": "o_scan_cycle_runtime",
+          "nvidia_smi": smi, "cycles": summary["cycles"],
+          "segments": 4, "n_inferences": summary["n_inferences"],
+          "latency_cycles": sorted(set(log.inference_latency_cycles)),
+          "detections": len(log.detections),
+          "cycle_time_mean_ms": 1e3 * summary["cycle_time_mean_s"],
+          "cycle_time_p99_ms": 1e3 * summary["cycle_time_p99_s"],
+          "cycle_time_max_ms": 1e3 * max(log.cycle_times_s),
+          "cycle_budget_ms": 1e3 * scan.cycle_budget_s,
+          "cycles_over_budget": sum(t > scan.cycle_budget_s
+                                    for t in log.cycle_times_s)})
+
+    # (p) the IEC 61131-3 export, held against the card's engine.
+    off_cadence = normalized_windows(spec.STRIDE // 2)[:n_streams]
+
+    def calibrated_head(model, params):
+        recon = ref.fused_mlp_ref(off_cadence, ops.dense_stack(model, params))
+        scores = torch.mean(torch.square(recon - off_cadence), dim=-1)
+        return ReconstructionHead().calibrate(scores.cpu().numpy(),
+                                              spec.AE_TARGET_FPR)
+
+    ae_real = card_model(build_autoencoder, "REAL", seed=3)
+    replay = sorted(int(s) for s in np.random.default_rng(17).choice(
+        n_streams, REPLAY_PLANTS, replace=False))
+    steps = len(window_starts(N_CYCLES, spec.WINDOW, spec.STRIDE))
+    for run, (model, params), head in (
+            ("p_sint_classifier_export", cls_sint, ClassifierHead()),
+            ("p_sint_autoencoder_export", ae_sint,
+             calibrated_head(*ae_sint)),
+            ("p_real_autoencoder_export", ae_real,
+             calibrated_head(*ae_real))):
+        export = export_st(model, params, head=head, name=run.upper(),
+                           normalize=(spec.NORM_MEAN, spec.NORM_STD))
+        reset_counts()
+        res = verify_export(export, model, params, head, readings,
+                            spec.STRIDE, streams=replay, device=dev)
+        counts = read_counts()
+        launches["fused_mlp"] += counts["fused_mlp"]
+        sint = export.scheme == "SINT"
+        if counts != expect(fused_mlp=steps):
+            raise AssertionError(f"{run}: launches {counts}, expected "
+                                 f"{steps} fused_mlp")
+        if (res["windows"] != REPLAY_PLANTS * steps or res["failures"]
+                or (sint and (res["borderline"]
+                              or res["max_body_diff"] != 0.0))
+                or (sint and head.name == "classifier"
+                    and res["max_engine_diff"] != 0.0)):
+            raise AssertionError(f"{run}: {res}")
+        emit({"phase": "framework", "run": run, "nvidia_smi": smi,
+              "scheme": export.scheme, "head": export.head_name,
+              "st_lines": len(export.text.splitlines()),
+              "plants_served": n_streams, "plants_replayed": REPLAY_PLANTS,
+              "steps": steps, "launches": counts, **res})
+
+    phase_done("framework")
     emit({"phase": "seconds", "total": time.perf_counter() - started,
           **seconds})
 

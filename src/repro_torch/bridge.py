@@ -4,7 +4,8 @@ Two tree shapes cross: the detector's ``ParamTree``, ``{uid: {"w", "b"} |
 {"qw", "w_scale", "x_scale", "b"}}`` (integer node uids), and the LLM
 families' nested trees, ``{"embed", "blocks", "final_norm"}`` with the
 per-layer ``blocks`` stacked on a leading ``n_layers`` axis.  The port keeps
-the same keys.  Callers hand :func:`params_from_numpy` leaves that
+the same keys and layouts (a convolution's ``w`` stays HWIO, BatchNorm's
+``gamma``/``beta``/``mean``/``var`` stay per channel).  Callers hand :func:`params_from_numpy` leaves that
 ``np.asarray`` accepts (a JAX array is one), so this module imports no JAX.
 Dtypes are kept: integer codes stay integer, f32 stays f32, and bfloat16
 leaves (numpy arrays of ``ml_dtypes.bfloat16``, which ``torch.from_numpy``

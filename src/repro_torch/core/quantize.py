@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core.layers import TORCH_INT_TYPES, Dense, IEC_INT_TYPES
 from repro_torch.core.model import Model, ParamTree
-from repro_torch.device import Device, resolve_device
+from repro_torch.device import Device, params_device, resolve_device
 
 SCHEMES = ("SINT", "INT", "DINT")  # REAL == unquantized
 
@@ -68,13 +68,6 @@ def quantize_tensor(w: torch.Tensor, scheme: str, *, per_channel: bool = True,
     return QuantizedTensor(q=q, scale=scale.to(torch.float32))
 
 
-def _tree_device(params: ParamTree) -> torch.device:
-    for p in params.values():
-        for v in p.values():
-            return v.device
-    raise ValueError("param tree holds no tensors")
-
-
 def calibrate_activation_scales(
     model: Model, params: ParamTree, samples: Iterable[torch.Tensor],
     scheme: str,
@@ -82,7 +75,7 @@ def calibrate_activation_scales(
     """Per-node activation scales from representative data: each Dense
     node's input absmax over ``samples``, divided by the scheme's qmax."""
     qmax = float(torch.iinfo(_int_dtype(scheme)).max)
-    device = _tree_device(params)
+    device = params_device(params)
     absmax: Dict[int, torch.Tensor] = {}
     for x in samples:
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -192,3 +185,8 @@ def op_counts(in_features: int, units: int, quantized: bool) -> Dict[str, int]:
         "int_mul": in_features * units,
         "int_add": in_features * units,
     }
+
+
+def quantization_error_bound(scale: torch.Tensor) -> torch.Tensor:
+    """Symmetric rounding error bound: |w - deq(q(w))| <= scale / 2."""
+    return scale / 2.0

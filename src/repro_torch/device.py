@@ -39,3 +39,16 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def params_device(params) -> torch.device:
+    """The device of the first tensor of a (nested) param tree, or the card
+    (resolved, so it raises without one) when the tree holds no tensor."""
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, torch.Tensor):
+            return resolve_device(node.device)
+        if isinstance(node, dict):
+            stack.extend(reversed(list(node.values())))
+    return resolve_device("cuda")

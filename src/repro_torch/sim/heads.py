@@ -1,7 +1,7 @@
 """Detector heads: what a detection workload computes *after* the MLP body.
 
-The serving half of ``repro.sim.heads`` in PyTorch (training losses and the
-Structured Text export hooks are not ported yet):
+The serving half of ``repro.sim.heads`` in PyTorch, with its Structured
+Text export hooks (training losses are not ported yet):
 
 * :class:`ClassifierHead` — the §7 classifier: verdict = argmax class with
   its softmax probability.
@@ -20,6 +20,11 @@ threshold calibration (``calibrate``, the conservative quantile) and the
 streaming recalibration state (``calib_state`` / ``calib_update`` on the
 device, ``streaming_threshold`` on the host).  Host-side code is the
 reference's numpy, so verdicts agree bit for bit on equal step outputs.
+
+For the IEC 61131-3 export (``repro_torch.codegen.st``) a head writes the
+verdict epilogue of the emitted ``FUNCTION_BLOCK`` (``st_epilogue``,
+``st_score``) and names its verdict outputs (``st_verdict_outputs``); the
+text is the reference's, statement for statement.
 """
 
 from __future__ import annotations
@@ -102,6 +107,25 @@ class DetectorHead:
         engine's live threshold)."""
         raise NotImplementedError
 
+    # -- IEC 61131-3 Structured Text export (repro_torch.codegen.st) --------
+    #
+    # The writer is duck-typed (codegen.st.STWriter) so this module never
+    # imports the codegen package; ``ctx`` is a codegen.st.STContext carrying
+    # the array names and widths of the surrounding block.
+
+    def st_verdict_outputs(self) -> Tuple[str, ...]:
+        """Names of the VAR_OUTPUTs the head's ST epilogue produces, in
+        Verdict-field order."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no Structured Text export epilogue")
+
+    def st_epilogue(self, w, ctx) -> None:
+        """Write the verdict epilogue into an ST writer: declare the verdict
+        VAR_OUTPUTs and emit the statements computing them from the model
+        output array ``ctx.y`` (and the model-input view ``ctx.x``)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no Structured Text export epilogue")
+
 
 @dataclasses.dataclass(frozen=True)
 class ClassifierHead(DetectorHead):
@@ -121,6 +145,34 @@ class ClassifierHead(DetectorHead):
         pred = out.argmax(axis=-1)
         prob = softmax_np(out)[np.arange(len(out)), pred]
         return pred.astype(np.int64), prob, None, None
+
+    def st_verdict_outputs(self):
+        return ("PRED", "CONF")
+
+    def st_epilogue(self, w, ctx):
+        # Argmax with strict `>` keeps the FIRST maximum — np.argmax's tie
+        # rule — and the softmax probability of the argmax class collapses to
+        # 1/sum(exp(y_i - max)): exp(0) = 1.0 exactly, so the winning term
+        # needs no batch-varying index.
+        w.output("PRED", "DINT")
+        w.output("CONF", "REAL")
+        w.var("I", "DINT")
+        w.var("BEST", "REAL")
+        w.var("ESUM", "REAL")
+        w.comment("verdict: argmax class + softmax confidence of that class")
+        w.line(f"BEST := {ctx.y}[0];")
+        w.line("PRED := 0;")
+        w.line(f"FOR I := 1 TO {ctx.n_outputs - 1} DO")
+        w.line(f"    IF {ctx.y}[I] > BEST THEN")
+        w.line(f"        BEST := {ctx.y}[I];")
+        w.line("        PRED := I;")
+        w.line("    END_IF;")
+        w.line("END_FOR;")
+        w.line("ESUM := 0.0;")
+        w.line(f"FOR I := 0 TO {ctx.n_outputs - 1} DO")
+        w.line(f"    ESUM := ESUM + EXP({ctx.y}[I] - BEST);")
+        w.line("END_FOR;")
+        w.line("CONF := 1.0 / ESUM;")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +227,37 @@ class ScoreHead(DetectorHead):
         score = out[:, 0] if out.ndim == 2 else out
         pred = (score > thr).astype(np.int64)
         return pred, None, score, thr
+
+    def st_verdict_outputs(self):
+        return ("PRED", "SCORE", "THRESHOLD")
+
+    def st_score(self, w, ctx) -> None:
+        """Write the statements assigning the head's anomaly score to the
+        REAL output ``SCORE`` — sequential f32 accumulation, the ST-side
+        contract the verification oracle replays."""
+        raise NotImplementedError
+
+    def st_epilogue(self, w, ctx):
+        if self.threshold is None:
+            raise ValueError(
+                f"{type(self).__name__} has no threshold; calibrate before "
+                "exporting to Structured Text (the cutoff is baked into the "
+                "block as a constant)")
+        w.output("SCORE", "REAL")
+        w.output("PRED", "DINT")
+        w.output("THRESHOLD", "REAL")
+        # The calibrated cutoff is an actual f32 calibration score, so
+        # snapping to f32 is exact and the strict REAL compare decides as the
+        # engine's float64 `score > threshold` does.
+        w.const("THR", "REAL", float(np.float32(self.threshold)))
+        self.st_score(w, ctx)
+        w.comment("verdict: strict score > calibrated threshold")
+        w.line("THRESHOLD := THR;")
+        w.line("IF SCORE > THR THEN")
+        w.line("    PRED := 1;")
+        w.line("ELSE")
+        w.line("    PRED := 0;")
+        w.line("END_IF;")
 
     # -- streaming recalibration (online drift adaptation) -----------------
 
@@ -248,6 +331,17 @@ class ReconstructionHead(ScoreHead):
     def kernel_epilogue(self):
         return ("mse", "window")
 
+    def st_score(self, w, ctx):
+        w.var("I", "DINT")
+        w.var("T", "REAL")
+        w.comment("anomaly score: mean squared reconstruction error")
+        w.line("SCORE := 0.0;")
+        w.line(f"FOR I := 0 TO {ctx.n_outputs - 1} DO")
+        w.line(f"    T := {ctx.y}[I] - {ctx.x}[I];")
+        w.line("    SCORE := SCORE + T * T;")
+        w.line("END_FOR;")
+        w.line(f"SCORE := SCORE / {w.real(float(ctx.n_outputs))};")
+
 
 @dataclasses.dataclass(frozen=True)
 class MarginHead(ScoreHead):
@@ -285,6 +379,20 @@ class MarginHead(ScoreHead):
 
     def kernel_epilogue(self):
         return ("mse", "center")
+
+    def st_score(self, w, ctx):
+        w.var("I", "DINT")
+        w.var("T", "REAL")
+        w.const("CENTER", "REAL",
+                [float(np.float32(c)) for c in self.center])
+        w.comment("anomaly score: mean squared distance from the benign "
+                  "center")
+        w.line("SCORE := 0.0;")
+        w.line(f"FOR I := 0 TO {ctx.n_outputs - 1} DO")
+        w.line(f"    T := {ctx.y}[I] - CENTER[I];")
+        w.line("    SCORE := SCORE + T * T;")
+        w.line("END_FOR;")
+        w.line(f"SCORE := SCORE / {w.real(float(ctx.n_outputs))};")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -332,3 +440,17 @@ class ForecastHead(ScoreHead):
         # weight rows past its true input width, so prepare()'s slice is
         # subsumed; the target is the window's newest reading.
         return ("mse", "tail")
+
+    def st_score(self, w, ctx):
+        # ctx.x is the FULL window array (the block keeps the extra ring
+        # reading); the forecast target is its last reading, starting at the
+        # model-input width the body consumed.
+        w.var("I", "DINT")
+        w.var("T", "REAL")
+        w.comment("anomaly score: mean squared next-step forecast error")
+        w.line("SCORE := 0.0;")
+        w.line(f"FOR I := 0 TO {ctx.n_outputs - 1} DO")
+        w.line(f"    T := {ctx.y}[I] - {ctx.x}[I + {ctx.in_width}];")
+        w.line("    SCORE := SCORE + T * T;")
+        w.line("END_FOR;")
+        w.line(f"SCORE := SCORE / {w.real(float(ctx.n_outputs))};")

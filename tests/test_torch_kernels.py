@@ -18,7 +18,11 @@ final softmax runs its own expf and row sum: within the REAL tolerance.
 off) within 1e-4, pruned columns exactly 0.  ``ssd_scan`` (another cumsum
 and product order than the plain version, 3xTF32 tensor-core products) y
 and final state within the reference's own rtol 2e-4 / atol 2e-5; on bf16
-views bit-equal to the same call on f32 copies.
+views bit-equal to the same call on f32 copies.  The framework's
+convolutions (cuDNN, not a kernel of the port) within 1e-5 of the CPU with
+cuDNN's TF32 flag on; multipart inference ``torch.equal`` to ``apply``; an
+exported SINT block bit-exact against the numpy oracle, whose logits the
+``fused_mlp`` engine's own step outputs equal bit for bit.
 """
 
 import numpy as np
@@ -638,3 +642,76 @@ def test_mamba_engine_launches_its_kernels(quant):
                   cache_len=128).serve(reqs)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+# ---------------------------------------------------------------------------
+# The framework on the card: IEEE f32 convolutions, multipart inference, and
+# the IEC 61131-3 export held against the fused_mlp engine
+
+
+@pytest.mark.parametrize("layer", [
+    TL.Conv2D(filters=64, kernel_size=(3, 3), strides=(2, 2)),
+    TL.Conv2D(filters=32, kernel_size=(3, 3), padding="VALID"),
+    TL.DepthwiseConv2D(kernel_size=(3, 3)),
+    TL.DepthwiseConv2D(kernel_size=(5, 5), strides=(2, 2), padding="VALID"),
+], ids=["conv_same_s2", "conv_valid", "dw_same", "dw_valid_s2"])
+def test_conv_layers_stay_ieee_f32_with_tf32_on(layer):
+    """cuDNN's TF32 flag at PyTorch's default (on): the layer still computes
+    IEEE f32, within 1e-5 of the CPU plain path (TF32 misses that by orders
+    of magnitude at 288-deep sums), and leaves the flag as it found it."""
+    shape = (17, 17, 32)
+    p = layer.init_params(torch.Generator().manual_seed(0), [shape])
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (4,) + shape).astype(np.float32))
+    want = layer.apply(p, [x])
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = layer.apply({k: v.cuda() for k, v in p.items()}, [x.cuda()])
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("scheme", ("SINT", "REAL"))
+def test_multipart_on_card_equals_single_shot(scheme):
+    from repro_torch.core.runtime import MultipartInference
+    model, params = card_model("detector", scheme, seed=3)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        400).astype(np.float32)).cuda()
+    single = model.apply(params, x)
+    assert torch.equal(model.apply_planned(params, x), single)
+    for n in (1, 2, 4, 8):
+        mi = MultipartInference(model, params, n)
+        assert mi.device.type == "cuda"
+        out = mi.run_all(x.cpu().numpy())
+        assert out.device.type == "cuda" and torch.equal(out, single)
+
+
+def test_export_verifies_against_the_card_engine():
+    """A narrow SINT classifier (40-8-2, a 20-reading window) served by
+    StreamEngine on the card, one fused_mlp launch per verdict step, and
+    every window replayed through the emulated block: the block's outputs
+    and the engine's logits both bit-equal to the numpy oracle."""
+    from repro_torch.codegen import export_st, verify_export, window_starts
+    from repro_torch.configs import msf_detector as spec
+    model = sequential([TL.Input(), TL.Dense(units=8, activation="relu"),
+                        TL.Dense(units=2, activation="linear")], (40,))
+    raw = fleet_readings(8, 230, seed=5)
+    norm = (raw - np.asarray(spec.NORM_MEAN, np.float32)) / np.asarray(
+        spec.NORM_STD, np.float32)
+    params = quantize.quantize_params(
+        model, model.init_params(torch.Generator().manual_seed(0),
+                                 device="cuda"), "SINT",
+        calibration=quantize.calibration_samples(
+            norm[:20].transpose(1, 0, 2).reshape(8, 40), k=8))
+    head = ClassifierHead()
+    export = export_st(model, params, head=head,
+                       normalize=(spec.NORM_MEAN, spec.NORM_STD))
+    before = fused_mlp.launches
+    res = verify_export(export, model, params, head, raw, spec.STRIDE)
+    steps = len(window_starts(230, 20, spec.STRIDE))
+    assert fused_mlp.launches - before == steps
+    assert res["windows"] == res["engine_windows"] == 8 * steps
+    assert res["failures"] == 0 and res["borderline"] == 0
+    assert res["max_body_diff"] == 0.0 and res["max_engine_diff"] == 0.0
