@@ -150,8 +150,47 @@ stdout; a failing phase raises and the script exits non-zero:
              bit-equal to numpy_mlp_ref too (max_engine_diff 0.0; the
              autoencoders' engine step returns only the score).  No
              verdict diversity is asserted: the weights are random.
+11. train — the §7 detectors trained on the card, at the data scale of
+             examples/export_st.py::trained_detector's real workflow
+             (build_dataset(21000 normal, 2850 attack cycles, stride 8,
+             jitter 0.015 over 4 plants): 7,452 windows), 60 epochs,
+             patience 8, lr 1e-3, batch 256.  (q) train_detector,
+             train_autoencoder, train_one_class and train_forecaster with
+             device="cuda": epochs run, first and last train loss, best
+             validation metric, test_acc, each score head's threshold,
+             calib_fpr and detection rate, wall seconds, steps/s and
+             fused_mlp launches; checked: the last epoch's loss below the
+             first, test_acc > 0.70, the autoencoder's detection rate >
+             0.5, every calib_fpr <= target_fpr, one fused_mlp launch per
+             validation epoch (plus the test split, the calibration and
+             attack scores, the margin center), and fused_mlp held to its
+             plain version on each trained stack's validation split (within
+             1e-5 of 1 + the largest output, as verify_export holds REAL:
+             the trained classifier's logits reach the hundreds).  One
+             classifier epoch under torch.profiler (busy share, device time
+             by kernel).  (r) each trainer for CHECK_EPOCHS epochs on the
+             card and on the CPU from the same seed, cuBLAS's TF32 flag on
+             (training turns it off for itself and restores it): losses,
+             validation metrics (the classifier's accuracy within one
+             validation window) and params (of the largest weight) within
+             1e-4.  (s) the trained classifier and autoencoder through
+             port_mlp, SINT quantization (calibration_samples of the
+             dataset), the autoencoder's threshold recalibrated on its
+             held-out calib_windows, export_st with the ingest
+             normalization, and verify_export against the 1024-plant fleet
+             on the card as in (p): 0 failures, 0 borderline, body
+             difference 0.0 (the classifier's engine difference 0.0), and
+             0 < anomalous < windows served; alarms per scenario printed
+             (first alarm after onset, alarms before it).  (t) the four
+             trained heads in SINT, score heads recalibrated on their
+             calib_windows, 4 x 1024 plants through
+             GroupedStreamEngine(megakernel=True) for 400 cycles: one
+             grouped_fused_mlp launch per step, equal to backend="ref" (as
+             (f)), and 0 < anomalous < windows for the classifier and the
+             autoencoder groups.
 
-Then the wall seconds of each phase and in all (``{"phase": "seconds"}``),
+Then the wall seconds of each phase and in all, and each trainer's wall
+seconds (``{"phase": "seconds"}``),
 the kernels summary line (``{"kernels": [...]}``, launch counts from
 the main-path runs), the nvidia-smi line and, last, ``{"ok": true,
 "device": ...}``.
@@ -224,6 +263,12 @@ F32_LOGIT_TOL = 1e-3
 # window the emulated ST block replays.
 MULTIPART_REPS = 20
 REPLAY_PLANTS = 256
+# Phase 11: the data and settings of examples/export_st.py::trained_detector's
+# real (not --fast) workflow, and run (r)'s short card-against-CPU runs.
+TRAIN_DATA = dict(normal_cycles=21_000, attack_cycles=2_850, stride=8, seed=0,
+                  jitter=0.015, jitter_plants=4)
+TRAIN_EPOCHS, TRAIN_PATIENCE, TRAIN_LR, TRAIN_BATCH = 60, 8, 1e-3, 256
+CHECK_EPOCHS, CARD_CPU_TOL = 2, 1e-4
 
 
 def emit(obj):
@@ -478,6 +523,362 @@ def nvidia_smi():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# The kernels whose launches the main-path runs count (module integers of
+# repro_torch.kernels: reset before a run, read after it).
+COUNTED = ("fused_mlp", "qmatmul", "grouped_mlp", "sparse_matmul", "ssd_scan")
+
+
+def reset_counts():
+    from repro_torch.kernels import fused_mlp, qmatmul, sparse_matmul, ssd_scan
+    fused_mlp.launches = qmatmul.launches = 0
+    fused_mlp.grouped_launches = 0
+    sparse_matmul.launches = ssd_scan.launches = 0
+
+
+def read_counts():
+    from repro_torch.kernels import fused_mlp, qmatmul, sparse_matmul, ssd_scan
+    return {"fused_mlp": fused_mlp.launches, "qmatmul": qmatmul.launches,
+            "grouped_mlp": fused_mlp.grouped_launches,
+            "sparse_matmul": sparse_matmul.launches,
+            "ssd_scan": ssd_scan.launches}
+
+
+def expect(**counts):
+    return {k: counts.get(k, 0) for k in COUNTED}
+
+
+def drive_grouped(engine, readings):
+    """Every cycle of ``readings`` through a GroupedStreamEngine: (verdicts,
+    each verdict step's outputs by group)."""
+    outs, verdicts = [], []
+    for c in range(len(readings)):
+        got = engine.ingest(readings[c])
+        if got:
+            verdicts.extend(got)
+            outs.append({k: v.copy() for k, v in
+                         engine.last_outputs.items()})
+    return verdicts, outs
+
+
+def same_outputs(run, scheme, got_steps, want_steps):
+    """Two runs' grouped outputs, step by step: the SINT classifier's logits
+    bit-equal, every other group within the REAL tolerance."""
+    if len(got_steps) != len(want_steps):
+        raise AssertionError(f"{run}: {len(got_steps)} vs "
+                             f"{len(want_steps)} steps of outputs")
+    for got, want in zip(got_steps, want_steps):
+        for name in GROUPS:
+            a, b = got[name], want[name]
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"{run}: bad {name} output "
+                                     f"{a.shape}")
+            if scheme == "SINT" and name == "clf":
+                np.testing.assert_array_equal(a, b)
+            else:
+                np.testing.assert_allclose(a, b, rtol=TOL["REAL"],
+                                           atol=TOL["REAL"])
+
+
+def train_phase(dev, smi, readings, grouped_readings, replay):
+    """Phase 11 (module docstring): (q) the four trainers at the full data
+    scale, (r) each against the CPU over CHECK_EPOCHS epochs, (s) the trained
+    classifier and autoencoder exported and verified against the card's
+    engine, (t) the trained four-head fleet.  Returns the main-path launch
+    counts, fused_mlp's largest difference from its plain version at this
+    path's shapes, and each trainer's wall seconds."""
+    import tempfile
+    from repro_torch.codegen import export_st, verify_export, window_starts
+    from repro_torch.codegen.verify import run_engine
+    from repro_torch.configs import msf_detector as spec
+    from repro_torch.core import porting, quantize
+    from repro_torch.kernels import fused_mlp, ops, ref
+    from repro_torch.serving import GroupedStreamEngine, ModelGroup
+    from repro_torch.sim import (SCENARIOS, ClassifierHead, build_dataset,
+                                 recalibrate_threshold, train_autoencoder,
+                                 train_detector, train_forecaster,
+                                 train_one_class)
+
+    launches = dict.fromkeys(COUNTED, 0)
+    fused_err = 0.0
+    walls = {}
+    x, y = build_dataset(**TRAIN_DATA)
+    n_normal = int(np.sum(y == 0))
+    trainers = {"clf": train_detector, "ae": train_autoencoder,
+                "mg": train_one_class, "fc": train_forecaster}
+    # fused_mlp launches besides one per validation epoch: the test split
+    # (classifier); the calibration and attack scores (score heads); the
+    # margin center's initial embedding.
+    extra = {"clf": 1, "ae": 2, "mg": 3, "fc": 2}
+    kw = dict(batch_size=TRAIN_BATCH, lr=TRAIN_LR, patience=TRAIN_PATIENCE)
+
+    def split(name):
+        """(training, validation) rows of a trainer: all windows for the
+        classifier, the benign ones for a score head."""
+        n = len(x) if name == "clf" else n_normal
+        return int(0.7225 * n), int(0.1275 * n)
+
+    def add(counts):
+        for k in COUNTED:
+            launches[k] += counts[k]
+
+    def check_fused(what, model, params, rows, exact):
+        """fused_mlp against its plain version on ``rows`` (host windows,
+        cut to the model's input as its head's prepare cuts them).  REAL
+        within 1e-5 of (1 + the largest output), verify_export's REAL
+        contract: trained logits reach the hundreds, and f32 sums taken in
+        another order part by ulps of their largest partial sums."""
+        nonlocal fused_err
+        stack = ops.dense_stack(model, params)
+        xs = torch.from_numpy(np.ascontiguousarray(
+            rows[:, :model.input_shape[0]], np.float32)).to(dev)
+        got = fused_mlp.fused_mlp(xs, ops.prepare_fused(stack))
+        want = ref.fused_mlp_ref(xs, stack)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = (torch.equal(got, want) if exact else
+              err <= TOL["REAL"] * (1.0 + float(want.abs().max())))
+        if not ok or not torch.isfinite(got).all():
+            raise AssertionError(f"fused_mlp {what} M={len(rows)}: kernel "
+                                 f"disagrees with the plain version (max abs "
+                                 f"err {err})")
+        fused_err = max(fused_err, err)
+        return err
+
+    # -- (q) full training on the card -------------------------------------
+    trained = {}
+    for name, train in trainers.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        model, res = train(x, y, epochs=TRAIN_EPOCHS, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        add(counts)
+        walls[name] = wall
+        epochs = len(res.history)
+        n_train, n_val = split(name)
+        steps = epochs * len(range(0, n_train - TRAIN_BATCH + 1, TRAIN_BATCH))
+        first, last = res.history[0][1], res.history[-1][1]
+        if not (np.isfinite([l for _, l, _ in res.history]).all()
+                and last < first):
+            raise AssertionError(f"(q) {name}: train loss {first} -> {last}")
+        if counts != expect(fused_mlp=epochs + extra[name]):
+            raise AssertionError(f"(q) {name}: launches {counts}, expected "
+                                 f"{epochs} validation epochs + "
+                                 f"{extra[name]} fused_mlp")
+        row = {"phase": "train", "run": f"q_{name}", "nvidia_smi": smi,
+               "windows": len(x), "train_rows": n_train, "val_rows": n_val,
+               "epochs_run": epochs, "steps": steps,
+               "first_train_loss": first, "last_train_loss": last,
+               "wall_s": wall, "steps_per_s": steps / wall,
+               "launches": counts}
+        # The path's fused_mlp shapes: the validation split (REAL f32_tile).
+        normal = x if name == "clf" else x[y == 0]
+        row["fused_vs_plain_val_err"] = check_fused(
+            f"trained {name} validation split", model, res.params,
+            normal[n_train:n_train + n_val], exact=False)
+        if name == "clf":
+            row.update(best_val_acc=res.best_val_acc, test_acc=res.test_acc)
+            if not res.test_acc > 0.70:
+                raise AssertionError(f"(q) clf: test_acc {res.test_acc}")
+        else:
+            row.update(best_val=(res.best_val_mse if name == "ae"
+                                 else res.best_val),
+                       threshold=res.threshold, calib_fpr=res.calib_fpr,
+                       target_fpr=res.head.target_fpr,
+                       test_detection_rate=res.test_detection_rate)
+            if not res.calib_fpr <= res.head.target_fpr:
+                raise AssertionError(f"(q) {name}: calib_fpr {res.calib_fpr}"
+                                     f" > {res.head.target_fpr}")
+            if name == "ae" and not res.test_detection_rate > 0.5:
+                raise AssertionError(f"(q) ae: detection rate "
+                                     f"{res.test_detection_rate}")
+        trained[name] = (model, res)
+        emit(row)
+
+    # One epoch of the classifier under torch.profiler.
+    timing = {}
+
+    def one_epoch():
+        t0 = time.perf_counter()
+        train_detector(x, y, epochs=1, device=dev, **kw)
+        torch.cuda.synchronize()
+        timing["wall"] = time.perf_counter() - t0
+
+    events = device_events(one_epoch)
+    by_name = {}
+    for ev, us in events:
+        by_name[ev] = by_name.get(ev, 0.0) + us
+    busy_us = sum(by_name.values())
+    n_train, _ = split("clf")
+    emit({"phase": "train", "run": "q_profile_clf_epoch", "nvidia_smi": smi,
+          "steps": n_train // TRAIN_BATCH, "device_events": len(events),
+          "fused_mlp_kernels": sum("fused_mlp_kernel" in n for n, _ in
+                                   events),
+          "wall_ms": timing["wall"] * 1e3, "device_busy_ms": busy_us / 1e3,
+          "device_busy_share": busy_us / 1e6 / timing["wall"],
+          "top_device_us": sorted(by_name.items(),
+                                  key=lambda kv: -kv[1])[:10]})
+
+    # -- (r) card against CPU, CHECK_EPOCHS epochs, TF32 flag on -----------
+    torch.backends.cuda.matmul.allow_tf32 = True
+    for name, train in trainers.items():
+        _, card = train(x, y, epochs=CHECK_EPOCHS, device=dev, **kw)
+        _, cpu = train(x, y, epochs=CHECK_EPOCHS, device="cpu", **kw)
+        if not torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("(r): training did not restore the TF32 "
+                                 "flag")
+        _, n_val = split(name)
+        loss_err = max(abs(a[1] - b[1]) / abs(b[1])
+                       for a, b in zip(card.history, cpu.history))
+        val_err = max(abs(a[2] - b[2]) / abs(b[2])
+                      for a, b in zip(card.history, cpu.history))
+        largest = max(float(v.abs().max()) for p in cpu.params.values()
+                      for v in p.values())
+        param_err = max(float((card.params[u][k].cpu() - v).abs().max())
+                        for u, p in cpu.params.items()
+                        for k, v in p.items()) / largest
+        val_ok = (all(abs(a[2] - b[2]) <= 1.0 / n_val + 1e-6
+                      for a, b in zip(card.history, cpu.history))
+                  if name == "clf" else val_err <= CARD_CPU_TOL)
+        if (len(card.history) != len(cpu.history) or not val_ok
+                or not loss_err <= CARD_CPU_TOL
+                or not param_err <= CARD_CPU_TOL):
+            raise AssertionError(
+                f"(r) {name}: card against CPU: losses {loss_err}, "
+                f"validation {val_err}, params {param_err} (histories "
+                f"{card.history} / {cpu.history})")
+        row = {"phase": "train", "run": f"r_{name}_card_vs_cpu",
+               "nvidia_smi": smi, "epochs": CHECK_EPOCHS,
+               "train_loss_rel_err": loss_err, "val_metric_rel_err": val_err,
+               "params_err_of_largest": param_err,
+               "card_history": card.history, "cpu_history": cpu.history}
+        if name != "clf":
+            row.update(threshold=[card.threshold, cpu.threshold],
+                       calib_fpr=[card.calib_fpr, cpu.calib_fpr],
+                       test_detection_rate=[card.test_detection_rate,
+                                            cpu.test_detection_rate])
+        emit(row)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # -- (s) the trained deployment: port, SINT, calibrate, export, serve --
+    calib = quantize.calibration_samples(x, y, device=dev)
+    steps = len(window_starts(N_CYCLES, spec.WINDOW, spec.STRIDE))
+    names = list(SCENARIOS)
+    scenario_of = [names[(s % N_PLANTS) % len(names)]
+                   for s in range(readings.shape[1])]
+    for name, run in (("clf", "s_trained_sint_classifier_export"),
+                      ("ae", "s_trained_sint_autoencoder_export")):
+        model, res = trained[name]
+        with tempfile.TemporaryDirectory() as tmp:
+            model, params = porting.port_mlp(model, res.params, tmp)
+        params = quantize.quantize_params(model, params, "SINT",
+                                          calibration=calib)
+        if name == "clf":
+            head = ClassifierHead()
+        else:
+            head, _ = recalibrate_threshold(model, params, res.calib_windows,
+                                            device=dev)
+        export = export_st(model, params, head=head, name=run.upper(),
+                           normalize=(spec.NORM_MEAN, spec.NORM_STD))
+        reset_counts()
+        out = verify_export(export, model, params, head, readings,
+                            spec.STRIDE, streams=replay, device=dev)
+        counts = read_counts()
+        add(counts)
+        if counts != expect(fused_mlp=steps):
+            raise AssertionError(f"{run}: launches {counts}, expected "
+                                 f"{steps} fused_mlp")
+        if (out["windows"] != len(replay) * steps or out["failures"]
+                or out["borderline"] or out["max_body_diff"] != 0.0
+                or (name == "clf" and out["max_engine_diff"] != 0.0)
+                or not 0 < out["anomalous"] < out["engine_windows"]):
+            raise AssertionError(f"{run}: {out}")
+        # Alarms per scenario, from the same engine's verdicts.
+        reset_counts()
+        verdicts = run_engine(model, params, readings, stride=spec.STRIDE,
+                              head=head, device=dev)
+        add(read_counts())
+        if sum(v.pred != 0 for v in verdicts) != out["anomalous"]:
+            raise AssertionError(f"{run}: a second serve of the fleet "
+                                 "decided otherwise")
+        alarms = {}
+        for v in verdicts:
+            sc = SCENARIOS[scenario_of[v.stream]]
+            a = alarms.setdefault(sc.name, {
+                "onset": sc.onset, "windows": 0, "alarms": 0,
+                "alarms_before_onset": 0, "first_alarm_after_onset": None})
+            a["windows"] += 1
+            if v.pred == 0:
+                continue
+            a["alarms"] += 1
+            if sc.onset is None or v.cycle < sc.onset:
+                a["alarms_before_onset"] += 1
+            elif (a["first_alarm_after_onset"] is None
+                  or v.cycle < a["first_alarm_after_onset"]):
+                a["first_alarm_after_onset"] = v.cycle
+        # The SINT stack's fused_mlp on the windows it was calibrated on.
+        exact_err = check_fused(f"trained SINT {name}", model, params,
+                                res.calib_windows if name == "ae"
+                                else x[y == 0], exact=True)
+        emit({"phase": "train", "run": run, "nvidia_smi": smi,
+              "scheme": export.scheme, "head": export.head_name,
+              "threshold": getattr(head, "threshold", None),
+              "st_lines": len(export.text.splitlines()),
+              "plants_served": readings.shape[1],
+              "plants_replayed": len(replay), "steps": steps,
+              "launches": counts, "fused_vs_plain_err": exact_err, **out,
+              "alarms_by_scenario": alarms})
+
+    # -- (t) the trained four-head fleet -----------------------------------
+    groups = []
+    for name in GROUPS:
+        model, res = trained[name]
+        params = quantize.quantize_params(
+            model, res.params, "SINT", calibration=quantize.calibration_samples(
+                x[:, :model.input_shape[0]], y, device=dev))
+        head = ClassifierHead()
+        if name != "clf":
+            head, _ = recalibrate_threshold(model, params, res.calib_windows,
+                                            head=res.head, device=dev)
+        groups.append(ModelGroup(name, model, params, readings.shape[1],
+                                 head))
+    engine = GroupedStreamEngine(groups, megakernel=True, device=dev)
+    engine.warmup()
+    reset_counts()
+    verdicts, outs = drive_grouped(engine, grouped_readings)
+    counts = read_counts()
+    add(counts)
+    fleet_steps = engine.stats.steps
+    if (fleet_steps != steps or counts != expect(grouped_mlp=fleet_steps)
+            or engine.mega_reason is not None):
+        raise AssertionError(f"(t): {fleet_steps} steps, launches {counts}, "
+                             f"{engine.mega_reason}")
+    plain = GroupedStreamEngine(groups, backend="ref", device=dev)
+    plain.warmup()
+    plain_verdicts, plain_outs = drive_grouped(plain, grouped_readings)
+    if [v.pred for v in verdicts] != [v.pred for v in plain_verdicts]:
+        raise AssertionError("(t): preds differ from the plain path")
+    same_outputs("(t)", "SINT", outs, plain_outs)
+    anomalous = {name: int(sum(v.pred for v in verdicts if v.group == name))
+                 for name in GROUPS}
+    per_group = readings.shape[1] * steps
+    for name in ("clf", "ae"):
+        if not 0 < anomalous[name] < per_group:
+            raise AssertionError(f"(t) {name}: {anomalous[name]} anomalous "
+                                 f"of {per_group}")
+    stats = engine.stats
+    emit({"phase": "train", "run": "t_trained_sint_fleet_mega",
+          "nvidia_smi": smi, "streams": engine.n_streams,
+          "groups": len(groups), "cycles": stats.cycles, "steps": fleet_steps,
+          "windows": stats.windows, "windows_per_s": stats.windows_per_s(),
+          "p99_ms": stats.latency_p(99) * 1e3, "launches": counts,
+          "thresholds": {g.name: getattr(g.head, "threshold", None)
+                         for g in groups},
+          "anomalous_verdicts": anomalous, "windows_per_group": per_group})
+    return launches, fused_err, walls
 
 
 def main():
@@ -1137,22 +1538,7 @@ def main():
         "e_sint_classifier_fused_async": (cls_sint, "SINT",
                                           {"async_depth": 1}),
     }
-    launches = {"fused_mlp": 0, "qmatmul": 0, "grouped_mlp": 0,
-                "sparse_matmul": 0, "ssd_scan": 0}
-
-    def reset_counts():
-        fused_mlp.launches = qmatmul.launches = 0
-        fused_mlp.grouped_launches = 0
-        sparse_matmul.launches = ssd_scan.launches = 0
-
-    def read_counts():
-        return {"fused_mlp": fused_mlp.launches, "qmatmul": qmatmul.launches,
-                "grouped_mlp": fused_mlp.grouped_launches,
-                "sparse_matmul": sparse_matmul.launches,
-                "ssd_scan": ssd_scan.launches}
-
-    def expect(**counts):
-        return {k: counts.get(k, 0) for k in launches}
+    launches = dict.fromkeys(COUNTED, 0)
 
     for run, ((model, params), scheme, kw) in runs.items():
         engine = StreamEngine(model, params, n_streams=n_streams, **kw)
@@ -1228,32 +1614,6 @@ def main():
         return [ModelGroup(name, model, params, n_streams, head)
                 for name, (model, params), head in zip(GROUPS, models, heads)]
 
-    def drive_grouped(engine):
-        outs, verdicts = [], []
-        for c in range(N_CYCLES):
-            got = engine.ingest(grouped_readings[c])
-            if got:
-                verdicts.extend(got)
-                outs.append({k: v.copy() for k, v in
-                             engine.last_outputs.items()})
-        return verdicts, outs
-
-    def same_outputs(run, scheme, got_steps, want_steps):
-        if len(got_steps) != len(want_steps):
-            raise AssertionError(f"{run}: {len(got_steps)} vs "
-                                 f"{len(want_steps)} steps of outputs")
-        for got, want in zip(got_steps, want_steps):
-            for name in GROUPS:
-                a, b = got[name], want[name]
-                if a.shape != b.shape or not np.isfinite(a).all():
-                    raise AssertionError(f"{run}: bad {name} output "
-                                         f"{a.shape}")
-                if scheme == "SINT" and name == "clf":
-                    np.testing.assert_array_equal(a, b)
-                else:
-                    np.testing.assert_allclose(a, b, rtol=TOL["REAL"],
-                                               atol=TOL["REAL"])
-
     sint_groups = fleet_groups("SINT", seed=4)
     sint_groups[1] = dataclasses.replace(sint_groups[1], adapt=AdaptConfig())
     grouped_runs = {
@@ -1267,7 +1627,7 @@ def main():
         engine = GroupedStreamEngine(groups, **kw)
         engine.warmup()
         reset_counts()
-        verdicts, outs = drive_grouped(engine)
+        verdicts, outs = drive_grouped(engine, grouped_readings)
         counts = read_counts()
         for k in launches:
             launches[k] += counts[k]
@@ -1283,7 +1643,8 @@ def main():
                                  f"{engine.mega_reason}")
         plain = GroupedStreamEngine(groups, backend="ref", **kw)
         plain.warmup()
-        plain_verdicts, plain_outs = drive_grouped(plain)
+        plain_verdicts, plain_outs = drive_grouped(plain,
+                                                   grouped_readings)
         if [v.pred for v in verdicts] != [v.pred for v in plain_verdicts]:
             raise AssertionError(f"{run}: preds differ from the plain path")
         same_outputs(run, scheme, outs, plain_outs)
@@ -1788,8 +2149,15 @@ def main():
               "steps": steps, "launches": counts, **res})
 
     phase_done("framework")
+    # -- 11. train: the §7 trainers on the card, and what they trained ------
+    train_launches, train_err, train_walls = train_phase(
+        dev, smi, readings, grouped_readings, replay)
+    for k in COUNTED:
+        launches[k] += train_launches[k]
+    fused_err = max(fused_err, train_err)
+    phase_done("train")
     emit({"phase": "seconds", "total": time.perf_counter() - started,
-          **seconds})
+          **seconds, "trainer_wall_s": train_walls})
 
     # -- summary ------------------------------------------------------------
     def ms(row):
@@ -1812,8 +2180,9 @@ def main():
         {"name": "fused_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_mlp.cu",
          "replaces": "src/repro/kernels/fused_mlp.py:234",
-         "launches": launches["fused_mlp"], "max_abs_err": fused_err,
-         "ms": ms(fused_head), "ms_source": source,
+         "launches": launches["fused_mlp"],
+         "train_launches": train_launches["fused_mlp"],
+         "max_abs_err": fused_err, "ms": ms(fused_head), "ms_source": source,
          "call_ms": fused_head["call_ms"], "plain_ms": fused_head["plain_ms"],
          "bound_ms": fused_head["bound_ms"],
          "bound_us": fused_head["bound_us"],
@@ -1839,7 +2208,9 @@ def main():
         {"name": "grouped_fused_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_mlp.cu",
          "replaces": "src/repro/kernels/fused_mlp.py:473",
-         "launches": launches["grouped_mlp"], "max_abs_err": g_err,
+         "launches": launches["grouped_mlp"],
+         "train_launches": train_launches["grouped_mlp"],
+         "max_abs_err": g_err,
          "ms": ms(g_head),
          "ms_source": ("torch.profiler" if g_head["ms"] is not None
                        else "call_ms"),

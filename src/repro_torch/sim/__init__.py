@@ -1,9 +1,13 @@
-"""The §7 MSF case study: plant simulator, scenario fleets, detector heads
-and model builders (``repro.sim``'s counterpart)."""
+"""The §7 MSF case study: plant simulator, scenario fleets, detector heads,
+model builders and their trainers (``repro.sim``'s counterpart)."""
 
-from repro_torch.sim.detector import (batched_forward, build_autoencoder,
-                                      build_detector, build_forecaster,
-                                      build_margin_model)
+from repro_torch.sim.detector import (AETrainResult, ScoreTrainResult,
+                                      TrainResult, batched_forward,
+                                      build_autoencoder, build_detector,
+                                      build_forecaster, build_margin_model,
+                                      recalibrate_threshold, score_windows,
+                                      train_autoencoder, train_detector,
+                                      train_forecaster, train_one_class)
 from repro_torch.sim.heads import (ClassifierHead, DetectorHead, ForecastHead,
                                    MarginHead, ReconstructionHead, ScoreHead,
                                    conservative_quantile, softmax_np)
@@ -13,8 +17,11 @@ from repro_torch.sim.msf import (ATTACK_NAMES, AttackEvent, ParamDrift,
 from repro_torch.sim.scenarios import (SCENARIOS, Scenario, build_fleet,
                                        fleet_readings)
 
-__all__ = ["batched_forward", "build_autoencoder", "build_detector",
-           "build_forecaster", "build_margin_model", "ClassifierHead",
+__all__ = ["AETrainResult", "ScoreTrainResult", "TrainResult",
+           "batched_forward", "build_autoencoder", "build_detector",
+           "build_forecaster", "build_margin_model", "recalibrate_threshold",
+           "score_windows", "train_autoencoder", "train_detector",
+           "train_forecaster", "train_one_class", "ClassifierHead",
            "DetectorHead", "ForecastHead", "MarginHead", "ReconstructionHead",
            "ScoreHead", "conservative_quantile", "softmax_np", "ATTACK_NAMES",
            "AttackEvent", "ParamDrift", "PlantParams", "PlantStream",

@@ -1,18 +1,21 @@
 """Detector heads: what a detection workload computes *after* the MLP body.
 
-The serving half of ``repro.sim.heads`` in PyTorch, with its Structured
-Text export hooks (training losses are not ported yet):
+``repro.sim.heads`` in PyTorch: each head's training objective, its
+serving epilogues and its Structured Text export hooks.
 
-* :class:`ClassifierHead` — the §7 classifier: verdict = argmax class with
-  its softmax probability.
+* :class:`ClassifierHead` — the §7 classifier: sparse-CE loss over labeled
+  windows, verdict = argmax class with its softmax probability.
 * :class:`ReconstructionHead` — autoencoder: anomaly score = per-window mean
-  squared reconstruction error.
+  squared reconstruction error; trained on benign windows only.
 * :class:`MarginHead` — one-class margin: score = mean squared distance of
   the embedding from a fixed benign ``center``.
 * :class:`ForecastHead` — next-step prediction: the model maps the window's
   first ``W - 1`` readings to the ``W``-th; score = squared forecast error.
 
-A head contributes the window-geometry contract (``ring_window`` /
+A head contributes its training objective (``loss``, and ``metric``, the
+model-selection score that checkpoint-best maximizes: differentiable torch
+ops on the outputs' device, which ``sim.detector``'s trainers call on batched
+model outputs), the window-geometry contract (``ring_window`` /
 ``model_input_size``), the device-side model-input view (``prepare``) and
 verdict reduction (``epilogue``, torch ops inside the engine's step), and the
 host-side verdict (``host_verdicts``, numpy).  Score heads also own their
@@ -57,9 +60,20 @@ def conservative_quantile(scores: np.ndarray, target_fpr: float) -> float:
 
 
 class DetectorHead:
-    """Base: the device epilogue / host verdict of one workload."""
+    """Base: the loss / device epilogue / host verdict of one workload."""
 
     name: str = "?"
+
+    def loss(self, outputs: torch.Tensor, x: torch.Tensor,
+             y: Optional[torch.Tensor]) -> torch.Tensor:
+        """Training objective over batched model outputs."""
+        raise NotImplementedError
+
+    def metric(self, outputs: torch.Tensor, x: torch.Tensor,
+               y: Optional[torch.Tensor]) -> torch.Tensor:
+        """Scalar model-selection metric — greater is better (checkpoint-best
+        and early stopping in the head-generic trainer key on it)."""
+        raise NotImplementedError
 
     def validate(self, input_size: int, n_outputs: int) -> None:
         """Raise early (engine construction) if the model can't carry this
@@ -129,9 +143,23 @@ class DetectorHead:
 
 @dataclasses.dataclass(frozen=True)
 class ClassifierHead(DetectorHead):
-    """Supervised classifier: argmax verdict (§7's head)."""
+    """Supervised classifier: CE loss, argmax verdict (§7's head)."""
 
     name: str = "classifier"
+
+    def loss(self, outputs, x, y):
+        logz = torch.logsumexp(outputs, dim=-1)
+        gold = torch.gather(outputs, -1, y[:, None].long())[:, 0]
+        return torch.mean(logz - gold)
+
+    def metric(self, outputs, x, y):
+        # The reference's f32 mean of the hits is their count times the f32
+        # reciprocal of the batch (XLA's form of the division), which can
+        # sit an ulp from count / n: take it the same way, so accuracies
+        # agree bit for bit.
+        hits = torch.sum(torch.argmax(outputs, dim=-1) == y,
+                         dtype=torch.float32)
+        return hits * float(np.float32(1) / np.float32(len(y)))
 
     def epilogue(self, win, out):
         return out                      # the logits ARE the verdict payload
@@ -179,9 +207,10 @@ class ClassifierHead(DetectorHead):
 class ScoreHead(DetectorHead):
     """Base for score-vs-threshold heads (every unsupervised workload).
 
-    Subclasses define :meth:`batch_scores`; the base gives the device
-    epilogue ((S, 1) scores), the host verdict (strict ``score >
-    threshold``), conservative FPR calibration and streaming recalibration.
+    Subclasses define :meth:`batch_scores`; the base gives the training
+    objective (mean score on benign windows), the device epilogue ((S, 1)
+    scores), the host verdict (strict ``score > threshold``), conservative
+    FPR calibration and streaming recalibration.
     ``threshold`` is None until calibrated; serving requires it.
     """
 
@@ -194,6 +223,13 @@ class ScoreHead(DetectorHead):
         """Per-window anomaly scores ``(B,)`` from batched model outputs
         (``x`` is the full window batch, before :meth:`prepare`)."""
         raise NotImplementedError
+
+    def loss(self, outputs, x, y):
+        return torch.mean(self.batch_scores(outputs, x))
+
+    def metric(self, outputs, x, y):
+        # Lower anomaly score on benign data is better; the trainer maximizes.
+        return -self.loss(outputs, x, y)
 
     def validate(self, input_size: int, n_outputs: int) -> None:
         if self.threshold is None:
@@ -330,6 +366,10 @@ class ReconstructionHead(ScoreHead):
 
     def kernel_epilogue(self):
         return ("mse", "window")
+
+    def scores(self, recon: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Per-window anomaly scores from batched reconstructions."""
+        return self.batch_scores(recon, x)
 
     def st_score(self, w, ctx):
         w.var("I", "DINT")

@@ -15,7 +15,10 @@ from repro_torch.core.quantize import calibration_samples
 from repro_torch.models.api import get_model
 from repro_torch.serving import (Engine, GroupedStreamEngine, ModelGroup,
                                  StreamEngine)
-from repro_torch.sim import build_detector
+from repro_torch.sim import (ReconstructionHead, build_autoencoder,
+                             build_detector, recalibrate_threshold,
+                             score_windows, train_autoencoder, train_detector,
+                             train_forecaster, train_one_class)
 
 torch.set_num_threads(1)
 
@@ -70,10 +73,24 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         params_from_numpy({1: {"w": np.zeros((2, 2), np.float32)}})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calibration_samples(np.zeros((4, 400), np.float32))
+    x = np.zeros((8, 400), np.float32)
+    y = np.zeros(8, np.int64)
+    for train in (train_detector, train_autoencoder, train_one_class,
+                  train_forecaster):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train(x, y)
+    ae = build_autoencoder()
+    ae_params = ae.init_params(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        score_windows(ae, ae_params, ReconstructionHead(), x)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        recalibrate_threshold(ae, ae_params, x)
     # The explicit CPU request is honoured.
     assert StreamEngine(model, cpu_params, n_streams=2,
                         device="cpu").device.type == "cpu"
     assert GroupedStreamEngine(groups, device="cpu").device.type == "cpu"
+    assert score_windows(ae, ae_params, ReconstructionHead(), x,
+                         device="cpu").shape == (8,)
 
 
 def test_llm_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):

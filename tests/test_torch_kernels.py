@@ -22,7 +22,11 @@ views bit-equal to the same call on f32 copies.  The framework's
 convolutions (cuDNN, not a kernel of the port) within 1e-5 of the CPU with
 cuDNN's TF32 flag on; multipart inference ``torch.equal`` to ``apply``; an
 exported SINT block bit-exact against the numpy oracle, whose logits the
-``fused_mlp`` engine's own step outputs equal bit for bit.
+``fused_mlp`` engine's own step outputs equal bit for bit.  Training on the
+card (autograd and Adam in f32, validation through ``fused_mlp``) follows
+the CPU path from the same init: train losses and validation metrics within
+1e-4 relative (an accuracy within one validation window), the returned
+params within 1e-4 of the largest weight.
 """
 
 import numpy as np
@@ -715,3 +719,39 @@ def test_export_verifies_against_the_card_engine():
     assert res["windows"] == res["engine_windows"] == 8 * steps
     assert res["failures"] == 0 and res["borderline"] == 0
     assert res["max_body_diff"] == 0.0 and res["max_engine_diff"] == 0.0
+
+
+def test_training_on_card_follows_the_cpu():
+    """Two epochs of the §7 classifier on the card, cuBLAS's TF32 flag on,
+    and on the CPU from the same seed (one CPU generator draws the init for
+    both), at the tolerances of ``chip_smoke.py`` run (r); one ``fused_mlp``
+    launch per validation epoch and one for the test split."""
+    from repro_torch.sim import build_dataset, train_detector
+    x, y = build_dataset(normal_cycles=3000, attack_cycles=800, stride=8,
+                         seed=0)
+    kw = dict(epochs=2, batch_size=128, lr=1e-3)
+    before = fused_mlp.launches
+    # cuBLAS's TF32 flag on: training keeps its products IEEE f32 and puts
+    # the caller's flag back.
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, card = train_detector(x, y, device="cuda", **kw)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert fused_mlp.launches - before == 2 + 1
+    _, cpu = train_detector(x, y, device="cpu", **kw)
+    assert len(card.history) == len(cpu.history) == 2
+    np.testing.assert_allclose([l for _, l, _ in card.history],
+                               [l for _, l, _ in cpu.history], rtol=1e-4)
+    n_val = int(0.1275 * len(x))
+    for (_, _, got), (_, _, want) in zip(card.history, cpu.history):
+        assert abs(got - want) <= 1.0 / n_val + 1e-6
+    largest = max(float(v.abs().max()) for p in cpu.params.values()
+                  for v in p.values())
+    for uid, p in cpu.params.items():
+        for k, v in p.items():
+            got = card.params[uid][k]
+            assert got.device.type == "cuda" and not got.requires_grad
+            torch.testing.assert_close(got.cpu(), v, rtol=0,
+                                       atol=1e-4 * largest)
