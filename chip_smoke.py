@@ -18,8 +18,12 @@ stdout; a failing phase raises and the script exits non-zero:
              a SINT stack with a REAL last layer (the f32-tile path)
              (fused_mlp; each row names its path, fused_mlp.path); the four
              classifier SINT
-             layer shapes, and mamba2-370m's two SINT projections at
-             M = 8 x 1024 (prefill) and M = 8 (decode), and untimed checks
+             layer shapes, and the LLM paths' SINT projections at their
+             prefill and decode batches: mamba2-370m's two (M = 8 x 1024
+             and 8), qwen3-8b's four (K x N = 4096 x 4096, 4096 x 1024,
+             4096 x 12288, 12288 x 4096 at M = 8 x 1024 and 8) and
+             granite-moe's two (1024 x 1024, 1024 x 512 at M = 512 and
+             8), and untimed checks
              on both sides of its path switch (M = 8, 63, 64, 65, 1000 at
              K x N = 400 x 64, 256 x 4384, 256 x 1024, 16 x 2, and an
              operand off 16-byte alignment) (qmatmul); the
@@ -189,6 +193,33 @@ stdout; a failing phase raises and the script exits non-zero:
              (f)), and 0 < anomalous < windows for the classifier and the
              autoencoder groups.
 
+12. llm — the dense GQA decoder and its MoE twin at full width, random
+             weights from a seed (qwen3-8b: 36 layers, d 4096, 32/8 heads of
+             128, d_ff 12288, vocab 151936; granite-moe-1b-a400m: 24
+             layers, d 1024, 16/8 heads, 32 experts top-8, d_ff 512).
+             (u) qwen3-8b bf16 SINT through the wave Engine, 8 slots, 8
+             requests of 1024 prompt tokens, 32 greedy new tokens (the
+             slice's main path): 252 qmatmul launches per forward (8,064),
+             nothing else; tokens and prefill logits torch.equal to the
+             same engine with backend={"qmatmul": "ref"}; one prefill and
+             one decode step under torch.profiler (busy share, device time
+             by kernel, qmatmul's share against its bound).  (v) the §6.3 CyclicDecoder, 4
+             segments, batch 1, from (u)'s first prompt, 31 tokens after
+             the prefill's, a PI control task once per cycle: tokens equal
+             to a batch-1 wave engine's; cycle p50/p99 against the 100 ms
+             scan cycle.  (w) qwen3-8b's widths cut to 2 layers, f32 REAL,
+             2 x 128 prompt tokens, prefill and 8 greedy decode steps, card
+             against the CPU's plain path (TF32 off): every step's logits
+             within 1e-4 of the largest, tokens equal.  (x) granite-moe
+             bf16 SINT through ContinuousEngine, 8 slots, 24 requests
+             (seeded prompt lengths 64-512, new tokens 16-48): tokens equal
+             to the same engine with qmatmul plain, 96 qmatmul launches per
+             forward (admission prefills and steps), ServeStats.  (y) (x)
+             with cyclic_segments=4: tokens equal to (x).  (z) mamba2-370m
+             f32 REAL through ContinuousEngine, 8 slots, 16 requests
+             (prompts 64-256): greedy tokens equal to backend="ref", 48
+             ssd_scan launches per admission.
+
 Then the wall seconds of each phase and in all, and each trainer's wall
 seconds (``{"phase": "seconds"}``),
 the kernels summary line (``{"kernels": [...]}``, launch counts from
@@ -269,6 +300,22 @@ TRAIN_DATA = dict(normal_cycles=21_000, attack_cycles=2_850, stride=8, seed=0,
                   jitter=0.015, jitter_plants=4)
 TRAIN_EPOCHS, TRAIN_PATIENCE, TRAIN_LR, TRAIN_BATCH = 60, 8, 1e-3, 256
 CHECK_EPOCHS, CARD_CPU_TOL = 2, 1e-4
+# Phase 12: the dense GQA decoder and its MoE twin at full width.  (u) and
+# (v): qwen3-8b, 8 x 1024 prompt tokens, 32 new, a 1088-position arena;
+# (v) decodes in CYCLIC_SEGMENTS scan cycles per token against the PLC's
+# SCAN_CYCLE_S.  (w): qwen3-8b's widths cut to WIDTH_LAYERS layers, card
+# against the CPU.  (x), (y): granite-moe through CONT_SLOTS continuous
+# slots, CONT_REQUESTS requests with seeded prompt lengths and new tokens
+# (prompt bodies of at most moe_group = 512 tokens: the MoE dispatch's
+# groups).  (z): mamba2-370m through the same slots.
+QWEN_ARCH, GRANITE_ARCH = "qwen3_8b", "granite_moe_1b_a400m"
+LLM_BATCH, LLM_PROMPT, LLM_NEW, LLM_CACHE = 8, 1024, 32, 1088
+CYCLIC_SEGMENTS, SCAN_CYCLE_S = 4, 0.1
+WIDTH_LAYERS, WIDTH_BATCH, WIDTH_PROMPT, WIDTH_STEPS = 2, 2, 128, 8
+WIDTH_TOL = 1e-4
+CONT_SLOTS, CONT_REQUESTS, CONT_PROMPTS, CONT_NEW = 8, 24, (64, 512), \
+    (16, 48)
+SSM_REQUESTS, SSM_PROMPTS, SSM_NEW, SSM_CACHE = 16, (64, 256), (16, 32), 512
 
 
 def emit(obj):
@@ -446,6 +493,12 @@ def qmatmul_bound(xq, wq, scale, bias):
                  2 * m * k * n / INT8_OPS_PER_S)
 
 
+def qmatmul_shape_bound(m, k, n):
+    """qmatmul_bound of an (m, k) x (k, n) call without a bias."""
+    return bound(m * k + k * n + 4 * n + 4 * m * n,
+                 2 * m * k * n / INT8_OPS_PER_S)
+
+
 def sparse_bound(x, w):
     """Bytes: the K blocks of x some tile reads, the nonzero tiles with their
     indices, out.  Operations: the nonzero tiles' products, f32."""
@@ -509,6 +562,12 @@ def upcast(tree):
     """A param tree with its floating leaves in f32 (bf16 is exact in f32)."""
     return {k: upcast(v) if isinstance(v, dict)
             else v.float() if v.is_floating_point() else v
+            for k, v in tree.items()}
+
+
+def tree_to(tree, device):
+    """A param tree with every leaf copied to ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
 
 
@@ -881,6 +940,355 @@ def train_phase(dev, smi, readings, grouped_readings, replay):
     return launches, fused_err, walls
 
 
+def tree_tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in tree_tensors(v)]
+    return [tree]
+
+
+def percentiles(xs):
+    xs = np.asarray(xs)
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "max": float(xs.max())}
+
+
+def llm_phase(dev, smi):
+    """Phase 12 (module docstring): runs (u)-(z), the dense decoder and its
+    MoE twin at full width through the wave Engine, the CyclicDecoder and
+    the ContinuousEngine, and mamba2's continuous slots.  Returns the
+    launch counts of the runs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.api import get_model
+    from repro_torch.serving import (ContinuousEngine, CyclicDecoder, Engine,
+                                     Request)
+
+    launches = dict.fromkeys(COUNTED, 0)
+    gen = torch.Generator(device=dev)
+
+    def counted(fn):
+        """``fn()`` with every count set to 0 just before it and read just
+        after: (its result, the counts), the counts added to the phase's."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k in COUNTED:
+            launches[k] += counts[k]
+        return out, counts
+
+    def check_counts(run, counts, want):
+        if counts != want:
+            raise AssertionError(f"{run}: launches {counts}, expected {want}")
+
+    def by_uid(done):
+        return {c.uid: np.asarray(c.tokens) for c in done}
+
+    def same_tokens(run, got, want):
+        if sorted(got) != sorted(want) or any(
+                not np.array_equal(got[u], want[u]) for u in want):
+            bad = [u for u in want if not np.array_equal(got.get(u),
+                                                         want[u])]
+            raise AssertionError(f"{run}: tokens differ from the run it is "
+                                 f"held to for requests {bad}")
+
+    def emit_row(run, row):
+        emit({"phase": "llm", "run": run, "nvidia_smi": smi, **row})
+
+    # -- (u) qwen3-8b, bf16 SINT, wave Engine: the slice's main path -------
+    qcfg = get_config(QWEN_ARCH).with_(quant="SINT")
+    per_forward = 7 * qcfg.n_layers          # q, k, v, o, gate, up, down
+    gen.manual_seed(19)
+    t0 = time.perf_counter()
+    params = get_model(qcfg).init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_gb = nbytes(*tree_tensors(params)) / 1e9
+    prompts = np.random.default_rng(19).integers(
+        0, qcfg.vocab, (LLM_BATCH, LLM_PROMPT))
+    reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=LLM_NEW)
+            for i in range(LLM_BATCH)]
+    api = get_model(qcfg)
+    engine = Engine(api, params, batch_slots=LLM_BATCH, cache_len=LLM_CACHE)
+    engine.serve([Request(uid=0, prompt=prompts[0, :64], max_new_tokens=2)])
+    torch.cuda.reset_peak_memory_stats()
+    done, counts = counted(lambda: engine.serve(reqs))
+    check_counts("u", counts, expect(qmatmul=per_forward * LLM_NEW))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    logits = engine.last_prefill_logits.clone()
+    tokens = np.stack([c.tokens for c in done])
+    if tokens.shape != (LLM_BATCH, LLM_NEW) \
+            or logits.shape != (LLM_BATCH, qcfg.vocab) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"u: tokens {tokens.shape}, logits "
+                             f"{tuple(logits.shape)}")
+    del engine
+    plain = Engine(get_model(qcfg, backend={"qmatmul": "ref"}), params,
+                   batch_slots=LLM_BATCH, cache_len=LLM_CACHE)
+    plain_done = plain.serve(reqs)
+    plain_logits = plain.last_prefill_logits
+    if not torch.equal(logits, plain_logits) or not np.array_equal(
+            tokens, np.stack([c.tokens for c in plain_done])):
+        raise AssertionError(
+            f"u: the kernel path differs from the same path with plain "
+            f"qmatmul (logits off by "
+            f"{float((logits - plain_logits).abs().max())})")
+    del plain, plain_logits
+    emit_row("u_qwen3_8b_bf16_sint_wave", {
+        "model": qcfg.name, "dtype": "bfloat16", "quant": "SINT",
+        "layers": qcfg.n_layers, "d_model": qcfg.d_model,
+        "heads": [qcfg.n_heads, qcfg.n_kv_heads, qcfg.d_head],
+        "d_ff": qcfg.d_ff, "vocab": qcfg.vocab, "batch": LLM_BATCH,
+        "prompt": LLM_PROMPT, "new_tokens": LLM_NEW, "cache_len": LLM_CACHE,
+        "init_s": init_s, "param_gb": param_gb, "peak_mem_gb": peak_gb,
+        "prefill_s": done[0].prefill_s,
+        "prefill_tok_per_s": LLM_BATCH * LLM_PROMPT / done[0].prefill_s,
+        "decode_s": done[0].decode_s,
+        "decode_tok_per_s": LLM_BATCH * (LLM_NEW - 1) / done[0].decode_s,
+        "launches": counts, "qmatmul_per_forward": per_forward,
+        "equal_to_plain_qmatmul_path": True,
+        "plain_prefill_s": plain_done[0].prefill_s,
+        "plain_decode_s": plain_done[0].decode_s,
+        "first_tokens": tokens[:, :8].tolist()})
+
+    # One prefill and one decode step of (u) under torch.profiler: where
+    # their time goes.
+    batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+    cache, lg = api.prefill(params, batch, LLM_CACHE)
+    torch.cuda.synchronize()
+    timing = {}
+
+    def one_prefill():
+        t0 = time.perf_counter()
+        api.prefill(params, batch, LLM_CACHE)
+        torch.cuda.synchronize()
+        timing["wall"] = time.perf_counter() - t0
+
+    events = device_events(one_prefill)
+    d, kv, ff = qcfg.d_model, qcfg.n_kv_heads * qcfg.d_head, qcfg.d_ff
+    shapes = ((d, d), (d, kv), (d, kv), (d, d), (d, ff), (d, ff), (ff, d))
+
+    def profile_row(run, events, wall, m):
+        """Busy share, device time by kernel and qmatmul's share against
+        its bound (the layer's seven projections at M = m, every layer)."""
+        by_name = {}
+        for name, us in events:
+            by_name[name] = by_name.get(name, 0.0) + us
+        busy_us = sum(by_name.values())
+        q_us = [us for name, us in events if "qmatmul_kernel" in name]
+        if events and len(q_us) != per_forward:
+            raise AssertionError(f"profile {run}: {len(q_us)} qmatmul "
+                                 f"kernels, expected {per_forward}")
+        emit({"phase": "profile", "run": run, "nvidia_smi": smi,
+              "kernel": "qmatmul_kernel", "kernel_launches": len(q_us),
+              "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+              "device_busy_share": busy_us / 1e6 / wall,
+              "qmatmul_ms": sum(q_us) / 1e3,
+              "qmatmul_share_of_busy": (sum(q_us) / busy_us if busy_us
+                                        else None),
+              "qmatmul_bound_ms": qcfg.n_layers * sum(
+                  qmatmul_shape_bound(m, k, n)[0] for k, n in shapes),
+              "device_events": len(events),
+              "top_device_us": sorted(by_name.items(),
+                                      key=lambda kv: -kv[1])[:15]})
+
+    profile_row("u_qwen3_8b_prefill", events, timing["wall"],
+                LLM_BATCH * LLM_PROMPT)
+    cur = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    api.decode(params, cache, {"tokens": cur}, LLM_PROMPT)
+    torch.cuda.synchronize()
+
+    def one_step():
+        t0 = time.perf_counter()
+        api.decode(params, cache, {"tokens": cur}, LLM_PROMPT + 1)
+        torch.cuda.synchronize()
+        timing["step"] = time.perf_counter() - t0
+
+    profile_row("u_qwen3_8b_decode_step", device_events(one_step),
+                timing["step"], LLM_BATCH)
+    del batch, events, cache, lg
+
+    # -- (v) §6.3: the same model decoding in CYCLIC_SEGMENTS cycles ----------
+    plc = {"level": 0.5, "integral": 0.0, "cycles": 0}
+
+    def control_task():
+        """A PLC's primary task, one step per scan cycle: a PI loop holding
+        a tank level at its set point."""
+        err = 0.6 - plc["level"]
+        plc["integral"] += err * SCAN_CYCLE_S
+        u = 0.8 * err + 0.2 * plc["integral"]
+        plc["level"] += SCAN_CYCLE_S * (u - 0.1 * plc["level"])
+        plc["cycles"] += 1
+
+    one = {"tokens": torch.from_numpy(prompts[:1]).to(dev)}
+
+    def cyclic():
+        cache, lg = api.prefill(params, one, LLM_CACHE)
+        first = torch.argmax(lg[:, -1], dim=-1)
+        cd = CyclicDecoder(qcfg, params, n_segments=CYCLIC_SEGMENTS,
+                           batch=1, cache_len=LLM_CACHE)
+        t0 = time.perf_counter()
+        toks, _, stats = cd.decode_tokens(cache, first, LLM_PROMPT,
+                                          LLM_NEW - 1,
+                                          control_task=control_task)
+        return ([int(first[0])] + toks, stats, cd.bounds,
+                time.perf_counter() - t0)
+
+    (ctoks, stats, bounds, cyc_s), counts = counted(cyclic)
+    check_counts("v", counts, expect(qmatmul=per_forward * LLM_NEW))
+    wave1 = Engine(api, params, batch_slots=1, cache_len=LLM_CACHE).serve(
+        [reqs[0]])[0].tokens
+    if not np.array_equal(np.asarray(ctoks), wave1):
+        raise AssertionError(f"v: cyclic tokens {ctoks} differ from the "
+                             f"batch-1 wave engine's {wave1.tolist()}")
+    if plc["cycles"] != len(bounds) * (LLM_NEW - 1) \
+            or len(stats.cycle_times_s) != plc["cycles"]:
+        raise AssertionError(f"v: {plc['cycles']} control steps, "
+                             f"{len(stats.cycle_times_s)} cycle times")
+    ct = stats.cycle_times_s
+    emit_row("v_qwen3_8b_sint_cyclic", {
+        "model": qcfg.name, "segments": bounds, "tokens": len(ctoks),
+        "cycles": len(ct), "cycle_s": percentiles(ct),
+        "scan_cycle_s": SCAN_CYCLE_S,
+        "cycles_over_scan_cycle": int(sum(c > SCAN_CYCLE_S for c in ct)),
+        "decode_s": cyc_s, "tok_per_s": (LLM_NEW - 1) / cyc_s,
+        "launches": counts, "equal_to_batch1_wave": True,
+        "control_level": plc["level"]})
+    del params, api
+
+    # -- (w) qwen3-8b widths, two layers, f32 REAL: card against the CPU ----
+    wcfg = get_config(QWEN_ARCH).with_(n_layers=WIDTH_LAYERS,
+                                       dtype=torch.float32)
+    cpu_params = get_model(wcfg).init(torch.Generator().manual_seed(23),
+                                      device="cpu")
+    card_params = tree_to(cpu_params, dev)
+    wprompts = np.random.default_rng(23).integers(
+        0, wcfg.vocab, (WIDTH_BATCH, WIDTH_PROMPT))
+
+    def greedy(p, device):
+        """Prefill and WIDTH_STEPS greedy decode steps: each step's logits
+        (on the host) and tokens."""
+        wapi = get_model(wcfg)
+        cache, lg = wapi.prefill(p, {"tokens": torch.from_numpy(
+            wprompts).to(device)}, WIDTH_PROMPT + WIDTH_STEPS)
+        outs, toks = [lg[:, -1].cpu()], []
+        for step in range(WIDTH_STEPS):
+            cur = torch.argmax(lg[:, -1], dim=-1)
+            toks.append(cur.cpu().numpy())
+            cache, lg = wapi.decode(p, cache, {"tokens": cur[:, None]},
+                                    WIDTH_PROMPT + step)
+            outs.append(lg[:, -1].cpu())
+        return torch.stack(outs), np.stack(toks)
+
+    t0 = time.perf_counter()
+    card_logits, card_toks = greedy(card_params, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_logits, cpu_toks = greedy(cpu_params, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    w_err = float((card_logits - cpu_logits).abs().max()
+                  / cpu_logits.abs().max())
+    if w_err > WIDTH_TOL or not np.array_equal(card_toks, cpu_toks):
+        raise AssertionError(f"w: logits {w_err} of the largest from the "
+                             f"CPU (tolerance {WIDTH_TOL}), tokens equal "
+                             f"{np.array_equal(card_toks, cpu_toks)}")
+    emit_row("w_qwen3_8b_widths_f32_card_vs_cpu", {
+        "model": wcfg.name, "layers": WIDTH_LAYERS, "batch": WIDTH_BATCH,
+        "prompt": WIDTH_PROMPT, "decode_steps": WIDTH_STEPS,
+        "logits_max_rel_err": w_err, "tolerance": WIDTH_TOL,
+        "tokens_equal": True, "card_s": card_s, "cpu_s": cpu_s,
+        "tf32": torch.backends.cuda.matmul.allow_tf32})
+    del cpu_params, card_params
+
+    # -- (x), (y) granite-moe, bf16 SINT, continuous slots -----------------
+    gcfg = get_config(GRANITE_ARCH).with_(quant="SINT")
+    g_forward = 4 * gcfg.n_layers            # q, k, v, o; experts plain
+    gen.manual_seed(29)
+    gparams = get_model(gcfg).init(gen)
+    rng = np.random.default_rng(29)
+    lens = rng.integers(CONT_PROMPTS[0], CONT_PROMPTS[1] + 1, CONT_REQUESTS)
+    news = rng.integers(CONT_NEW[0], CONT_NEW[1] + 1, CONT_REQUESTS)
+    creqs = [Request(uid=i, prompt=rng.integers(0, gcfg.vocab, lens[i]),
+                     max_new_tokens=int(news[i]))
+             for i in range(CONT_REQUESTS)]
+
+    def continuous(cfg, p, reqs_, backend="auto", cyclic=0, slots=CONT_SLOTS,
+                   cache_len=LLM_CACHE):
+        eng = ContinuousEngine(get_model(cfg, backend=backend), p,
+                               batch_slots=slots, cache_len=cache_len,
+                               cyclic_segments=cyclic)
+        eng.serve(reqs_[:1])                  # warm-up
+        return eng
+
+    def serve_row(eng, done, counts, extra):
+        st = eng.last_stats
+        n_tok = sum(len(c.tokens) for c in done)
+        prefill = sum(c.prefill_s for c in done)
+        lat = [c.finished_s for c in done]
+        return {"slots": eng.batch_slots, "requests": len(done),
+                "steps": st.steps, "admitted": st.admitted,
+                "wall_s": st.wall_s, "tokens": n_tok,
+                "tok_per_s": n_tok / st.wall_s,
+                "admission_prefill_s": prefill,
+                "step_ms": (st.wall_s - prefill) / st.steps * 1e3,
+                "finished_s": percentiles(lat), "launches": counts, **extra}
+
+    results = {}
+    for run, cyclic in (("x_granite_moe_bf16_sint_continuous", 0),
+                        ("y_granite_moe_bf16_sint_continuous_cyclic",
+                         CYCLIC_SEGMENTS)):
+        eng = continuous(gcfg, gparams, creqs, cyclic=cyclic)
+        done, counts = counted(lambda: eng.serve(creqs))
+        st = eng.last_stats
+        check_counts(run, counts,
+                     expect(qmatmul=g_forward * (st.admitted + st.steps)))
+        got = by_uid(done)
+        if cyclic == 0:
+            plain = continuous(gcfg, gparams, creqs,
+                               backend={"qmatmul": "ref"})
+            same_tokens(run, got, by_uid(plain.serve(creqs)))
+            held_to = "same engine, qmatmul plain"
+        else:
+            same_tokens(run, got, results["x_granite_moe_bf16_sint_"
+                                          "continuous"])
+            held_to = "x"
+        if any(len(got[r.uid]) != r.max_new_tokens for r in creqs):
+            raise AssertionError(f"{run}: a request stopped short")
+        results[run] = got
+        emit_row(run, serve_row(eng, done, counts, {
+            "model": gcfg.name, "dtype": "bfloat16", "quant": "SINT",
+            "layers": gcfg.n_layers, "experts": [gcfg.n_experts,
+                                                 gcfg.top_k],
+            "prompt_lens": [int(lens.min()), int(lens.max())],
+            "new_tokens": [int(news.min()), int(news.max())],
+            "cyclic_segments": cyclic, "held_to": held_to,
+            "tokens_equal": True}))
+        del eng
+    del gparams
+
+    # -- (z) mamba2-370m, f32 REAL, continuous slots -----------------------
+    mcfg = get_config(MAMBA_ARCH).with_(dtype=torch.float32)
+    gen.manual_seed(31)
+    mparams = get_model(mcfg).init(gen)
+    rng = np.random.default_rng(31)
+    slens = rng.integers(SSM_PROMPTS[0], SSM_PROMPTS[1] + 1, SSM_REQUESTS)
+    snews = rng.integers(SSM_NEW[0], SSM_NEW[1] + 1, SSM_REQUESTS)
+    sreqs = [Request(uid=i, prompt=rng.integers(0, mcfg.vocab, slens[i]),
+                     max_new_tokens=int(snews[i]))
+             for i in range(SSM_REQUESTS)]
+    eng = continuous(mcfg, mparams, sreqs, cache_len=SSM_CACHE)
+    done, counts = counted(lambda: eng.serve(sreqs))
+    check_counts("z", counts, expect(ssd_scan=mcfg.n_layers * SSM_REQUESTS))
+    plain = continuous(mcfg, mparams, sreqs, backend="ref",
+                       cache_len=SSM_CACHE)
+    same_tokens("z", by_uid(done), by_uid(plain.serve(sreqs)))
+    emit_row("z_mamba2_f32_continuous", serve_row(eng, done, counts, {
+        "model": mcfg.name, "dtype": "float32", "quant": "REAL",
+        "prompt_lens": [int(slens.min()), int(slens.max())],
+        "new_tokens": [int(snews.min()), int(snews.max())],
+        "held_to": "backend='ref' (sequential SSD)", "tokens_equal": True}))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -1248,17 +1656,36 @@ def main():
                       (1, 9, 1000),
                       lambda x, plan: x[:, :, :plan.n_out].contiguous())
 
-    # qmatmul at mamba2-370m's SINT projections (in_proj, out_proj) over a
-    # prefill of MAMBA_BATCH x MAMBA_PROMPT tokens and over a decode step of
-    # MAMBA_BATCH slots: the two shapes that the serve run (j) gives it.
+    # qmatmul at the LLM paths' SINT projections, over a prefill and over a
+    # decode step of their batches: mamba2-370m's in_proj and out_proj
+    # (MAMBA_BATCH x MAMBA_PROMPT tokens, run (j)); qwen3-8b's four shapes
+    # (LLM_BATCH x LLM_PROMPT tokens, run (u): K = 12288 walks 96 K steps,
+    # the 4096 x 12288 weight is 50 MB at decode); granite-moe's two
+    # attention shapes at the largest admission prefill of run (x) and its
+    # 8-slot decode.
     mcfg = get_config(MAMBA_ARCH)
+    qcfg, gcfg = get_config(QWEN_ARCH), get_config(GRANITE_ARCH)
     proj_out = 2 * mcfg.d_inner + 2 * mcfg.ssm_groups * mcfg.ssm_state \
         + mcfg.ssm_heads
-    for (name, (k, n)), m in itertools.product(
-            (("in_proj", (mcfg.d_model, proj_out)),
-             ("out_proj", (mcfg.d_inner, mcfg.d_model))),
-            (MAMBA_BATCH * MAMBA_PROMPT, MAMBA_BATCH)):
-        card_gen.manual_seed(k + m)
+    q_d, q_kv = qcfg.d_model, qcfg.n_kv_heads * qcfg.d_head
+    g_d, g_kv = gcfg.d_model, gcfg.n_kv_heads * gcfg.d_head
+    llm_shapes = [
+        ("mamba2 in_proj", mcfg.d_model, proj_out,
+         (MAMBA_BATCH * MAMBA_PROMPT, MAMBA_BATCH)),
+        ("mamba2 out_proj", mcfg.d_inner, mcfg.d_model,
+         (MAMBA_BATCH * MAMBA_PROMPT, MAMBA_BATCH)),
+        ("qwen3-8b wq/wo", q_d, q_d, (LLM_BATCH * LLM_PROMPT, LLM_BATCH)),
+        ("qwen3-8b wk/wv", q_d, q_kv, (LLM_BATCH * LLM_PROMPT, LLM_BATCH)),
+        ("qwen3-8b gate/up", q_d, qcfg.d_ff,
+         (LLM_BATCH * LLM_PROMPT, LLM_BATCH)),
+        ("qwen3-8b down", qcfg.d_ff, q_d,
+         (LLM_BATCH * LLM_PROMPT, LLM_BATCH)),
+        ("granite-moe wq/wo", g_d, g_d, (CONT_PROMPTS[1], CONT_SLOTS)),
+        ("granite-moe wk/wv", g_d, g_kv, (CONT_PROMPTS[1], CONT_SLOTS)),
+    ]
+    for name, k, n, ms, m in [(*shape, m) for shape in llm_shapes
+                              for m in shape[3]]:
+        card_gen.manual_seed(k + n + m)
         xq = torch.randint(-127, 128, (m, k), generator=card_gen,
                            device=dev, dtype=torch.int8)
         wq = torch.randint(-127, 128, (k, n), generator=card_gen,
@@ -1270,8 +1697,8 @@ def main():
         if not torch.equal(got, want):
             raise AssertionError(f"qmatmul {name} ({m}, {k}, {n}): "
                                  "kernel disagrees with the plain version")
-        row = {"m": m, "k": k, "n": n, "layer": f"mamba2 {name}",
-               "step": "prefill" if m > MAMBA_BATCH else "decode",
+        row = {"m": m, "k": k, "n": n, "layer": name,
+               "step": "prefill" if m > ms[1] else "decode",
                "max_abs_err": 0.0,
                "ms": kernel_ms(lambda: qmatmul.qmatmul(xq, wq, scale), 5,
                                "qmatmul_kernel"),
@@ -2156,6 +2583,11 @@ def main():
         launches[k] += train_launches[k]
     fused_err = max(fused_err, train_err)
     phase_done("train")
+    # -- 12. llm: the dense decoder and its MoE twin at full width ----------
+    llm_launches = llm_phase(dev, smi)
+    for k in COUNTED:
+        launches[k] += llm_launches[k]
+    phase_done("llm")
     emit({"phase": "seconds", "total": time.perf_counter() - started,
           **seconds, "trainer_wall_s": train_walls})
 
@@ -2204,7 +2636,8 @@ def main():
          "library_ms": None,
          "shape": "the four detector SINT layers at M=1024, summed "
                   "(one per-layer step)",
-         "timed": q_main, "timed_mamba2_sint": q_llm},
+         "llm_launches": llm_launches["qmatmul"],
+         "timed": q_main, "timed_llm_sint": q_llm},
         {"name": "grouped_fused_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_mlp.cu",
          "replaces": "src/repro/kernels/fused_mlp.py:473",
@@ -2238,7 +2671,8 @@ def main():
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:85",
-         "launches": launches["ssd_scan"], "max_abs_err": ssd_err,
+         "launches": launches["ssd_scan"],
+         "llm_launches": llm_launches["ssd_scan"], "max_abs_err": ssd_err,
          "ms": ms(ssd_head),
          "ms_source": ("torch.profiler" if ssd_head["ms"] is not None
                        else "call_ms"),

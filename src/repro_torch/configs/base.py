@@ -3,8 +3,9 @@
 
 ``ArchConfig`` carries the same fields, properties and ``reduced()`` sizes as
 the reference; ``dtype`` is a :class:`torch.dtype`.  :func:`get_config`
-covers the configurations whose model family the port serves (the
-attention-free ``mamba2_370m``); the others raise, naming ROADMAP item 14.
+covers the configurations whose model family the port serves (``dense``,
+``moe`` and ``ssm``); the others (hybrid, vlm, audio) raise, naming
+ROADMAP §1 item 4b.
 """
 
 from __future__ import annotations
@@ -27,8 +28,17 @@ ARCH_IDS = (
     "command_r_plus_104b",
     "mixtral_8x22b",
 )
-# The configurations whose family the port has (models/api.py).
-PORTED_ARCH_IDS = ("mamba2_370m",)
+# The configurations whose family the port has (models/api.py): every dense
+# and moe configuration, and the attention-free mamba2.
+PORTED_ARCH_IDS = (
+    "mamba2_370m",
+    "granite_moe_1b_a400m",
+    "command_r_35b",
+    "nemotron_4_340b",
+    "qwen3_8b",
+    "command_r_plus_104b",
+    "mixtral_8x22b",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +137,6 @@ def get_config(arch_id: str) -> ArchConfig:
         known = "known" if arch_id in ARCH_IDS else "unknown"
         raise ValueError(
             f"{arch_id!r} ({known}) is not ported: the port serves "
-            f"{PORTED_ARCH_IDS}; the other model families are ROADMAP "
-            "item 14")
+            f"{PORTED_ARCH_IDS}; the hybrid, vlm and audio families are "
+            "ROADMAP §1 item 4b")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG

@@ -1,0 +1,19 @@
+"""qwen3-8b [dense]: qk-norm, GQA. [hf:Qwen/Qwen3-8B]"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=12288,
+    vocab=151936,
+    mlp_kind="swiglu",
+    bias=False,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    source="hf:Qwen/Qwen3-8B",
+)

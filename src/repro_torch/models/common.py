@@ -1,21 +1,30 @@
 """Shared primitives of the LLM/SSM families (``repro.models.common``'s
-counterpart), as far as the Mamba-2 path needs them.
+counterpart): linear, norm and embedding, rotary embeddings, grouped-query
+attention with its static KV cache (and the §6.1 int8 cache), and the MLP
+variants.
 
 Conventions, as in the reference: params are nested dicts of tensors, with
-per-layer params **stacked** on a leading layer axis; activations compute in
-``cfg.dtype`` (bf16), norms and logits in f32; every linear layer goes
-through :func:`linear`, which takes the paper's §6.1 integer path when the
-params carry quantized weights (SINT through ``ops.quantized_matmul``, the
-``qmatmul`` kernel).  Attention, RoPE, MLP and MoE arrive with their
-families (ROADMAP item 14).
+per-layer params **stacked** on a leading layer axis (:func:`stack_layers`
+builds them layer by layer); activations compute in ``cfg.dtype`` (bf16),
+scores, softmax, norms and logits in f32; every linear layer goes through
+:func:`linear`, which takes the paper's §6.1 integer path when the params
+carry quantized weights (SINT through ``ops.quantized_matmul``, the
+``qmatmul`` kernel).  Attention is plain PyTorch (the reference's einsum
+form; XLA computes it outside any Pallas kernel).  The decode functions
+write the new K/V into the cache tensors they are given, in place (the
+reference's donated cache); a write position past the cache's end lands on
+its last row, as ``lax.dynamic_update_slice`` clamps its start.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.layers import TORCH_INT_TYPES
 from repro_torch.core.quantize import quantize_tensor
@@ -107,3 +116,301 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits in f32 for a stable softmax."""
     return torch.einsum("bsd,vd->bsv", x, p["emb"]).to(torch.float32)
+
+
+def stack_layers(init_one: Callable[[], Params], n: int,
+                 device: torch.device) -> Params:
+    """``n`` draws of ``init_one()`` stacked on a leading layer axis on
+    ``device``.  Built layer by layer into the preallocated stack, so only
+    one layer's draw lives beside it (a full-width model holds one copy)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                           device=device)
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    first = init_one()
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n):
+        put(out, init_one(), i)
+    return out
+
+
+def layer_slice(blocks: Params, layer: int) -> Params:
+    """Views of one layer's slice of stacked block params (or caches)."""
+    if isinstance(blocks, dict):
+        return {k: layer_slice(v, layer) for k, v in blocks.items()}
+    return blocks[layer]
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-split form)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(d_head: int, theta: float,
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) or (S,) integers."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)              # (D/2,)
+    angles = positions[..., None].to(torch.float32) * freqs   # (B, S, D/2)
+    cos = torch.cos(angles)[..., None, :]                     # (B, S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Grouped-query attention (full / causal / sliding-window; qk-norm option)
+# ---------------------------------------------------------------------------
+
+
+def gqa_scores_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """Boolean (Sq, Sk) attention mask."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return ok
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Grouped-query attention, scores and softmax in f32.  q (B, Sq, H, D),
+    k and v (B, Sk, K, D), mask (Sq, Sk) or per row (B, Sq, Sk) bool.
+    Returns (B, Sq, H, D) in q's type."""
+    b, sq, h, d = q.shape
+    kheads = k.shape[2]
+    qg = q.reshape(b, sq, kheads, h // kheads, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).to(torch.float32)
+    scores = scores / math.sqrt(d)
+    m = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+    scores = torch.where(m, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(b, sq, h, d)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    qk_norm: bool = False
+    bias: bool = False
+    rope_theta: float = 10000.0
+    window: Optional[int] = None     # sliding window (tokens), None = full
+    d_head: Optional[int] = None     # defaults to d_model // n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // self.n_heads)
+
+
+def attn_init(generator: torch.Generator, a: AttnConfig,
+              quant: Optional[str], dtype: torch.dtype = torch.bfloat16
+              ) -> Params:
+    d_head = a.head_dim
+    widths = {"wq": (a.d_model, a.n_heads * d_head),
+              "wk": (a.d_model, a.n_kv_heads * d_head),
+              "wv": (a.d_model, a.n_kv_heads * d_head),
+              "wo": (a.n_heads * d_head, a.d_model)}
+    p = {name: linear_init(generator, *dims, bias=a.bias, quant=quant,
+                           dtype=dtype)
+         for name, dims in widths.items()}
+    if a.qk_norm:
+        p["q_norm"] = rmsnorm_init(d_head, generator.device)
+        p["k_norm"] = rmsnorm_init(d_head, generator.device)
+    return p
+
+
+def attn_qkv(p: Params, a: AttnConfig, x: torch.Tensor,
+             positions: torch.Tensor, *, backend: kops.Backend = "auto"
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    d_head = a.head_dim
+    q = linear(p["wq"], x, backend=backend).reshape(b, s, a.n_heads, d_head)
+    k = linear(p["wk"], x, backend=backend).reshape(b, s, a.n_kv_heads,
+                                                    d_head)
+    v = linear(p["wv"], x, backend=backend).reshape(b, s, a.n_kv_heads,
+                                                    d_head)
+    if a.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    return (apply_rope(q, positions, a.rope_theta),
+            apply_rope(k, positions, a.rope_theta), v)
+
+
+def _window(a: AttnConfig, window_override: Optional[int]) -> Optional[int]:
+    return window_override if window_override is not None else a.window
+
+
+def attn_forward(p: Params, a: AttnConfig, x: torch.Tensor,
+                 positions: torch.Tensor, *,
+                 window_override: Optional[int] = None,
+                 backend: kops.Backend = "auto") -> torch.Tensor:
+    """Full-sequence (train/prefill) attention."""
+    out, _ = attn_prefill(p, a, x, positions, x.shape[1],
+                          window_override=window_override, backend=backend)
+    return out
+
+
+def attn_prefill(p: Params, a: AttnConfig, x: torch.Tensor,
+                 positions: torch.Tensor, cache_len: int, *,
+                 window_override: Optional[int] = None,
+                 backend: kops.Backend = "auto"
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill: the output and (k, v), zero-padded to ``cache_len``."""
+    q, k, v = attn_qkv(p, a, x, positions, backend=backend)
+    mask = gqa_scores_mask(positions, positions, causal=True,
+                           window=_window(a, window_override))
+    out = gqa_attention(q, k, v, mask)
+    pad = (0, 0, 0, 0, 0, cache_len - x.shape[1])
+    return (linear(p["wo"], out.reshape(*x.shape[:2], -1), backend=backend),
+            (F.pad(k, pad), F.pad(v, pad)))
+
+
+def _decode_mask(s_max: int, pos: torch.Tensor, window: Optional[int]
+                 ) -> torch.Tensor:
+    """(B, Smax) (or (Smax,) for a shared position) causal mask of one new
+    token at ``pos``, with the optional sliding window."""
+    k_pos = torch.arange(s_max, device=pos.device)
+    mask = k_pos <= pos[..., None]
+    if window is not None:
+        mask &= k_pos > pos[..., None] - window
+    return mask
+
+
+def _cache_write(cache: Tuple[torch.Tensor, ...], k: torch.Tensor,
+                 v: torch.Tensor, pos: torch.Tensor, dtype: torch.dtype
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one token's K/V (B, 1, K, D) at ``pos`` (shared () or per row
+    (B,)) into the cache tensors, in place, and return the full K/V in
+    ``dtype``.  The write index is clamped to [0, Smax - 1], where
+    ``lax.dynamic_update_slice`` puts a start that overruns."""
+    s_max = cache[0].shape[1]
+    idx = torch.clamp(pos, 0, s_max - 1)
+    rows = torch.arange(k.shape[0], device=k.device)
+    if pos.ndim == 0:
+        idx = idx.expand(k.shape[0])
+    if len(cache) == 4:
+        k_cache, v_cache, ks_cache, vs_cache = cache
+        (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
+        for full, new in ((k_cache, kq), (v_cache, vq), (ks_cache, ks),
+                          (vs_cache, vs)):
+            full[rows, idx] = new[:, 0]
+        return (k_cache.to(dtype) * ks_cache[..., None].to(dtype),
+                v_cache.to(dtype) * vs_cache[..., None].to(dtype))
+    k_cache, v_cache = cache
+    k_cache[rows, idx] = k[:, 0]
+    v_cache[rows, idx] = v[:, 0]
+    return k_cache, v_cache
+
+
+def attn_decode(p: Params, a: AttnConfig, x: torch.Tensor, pos,
+                cache: Tuple[torch.Tensor, ...], *,
+                window_override: Optional[int] = None,
+                backend: kops.Backend = "auto"
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One-token decode against a static cache, every row at ``pos``.
+
+    x: (B, 1, d_model); pos: an int or a 0-d integer tensor; cache either
+    ``(k, v)`` with k/v (B, Smax, K, D) in the compute type, or the int8
+    variant ``(k_q, v_q, k_scale, v_scale)`` with per-(token, head) REAL
+    scales — §6.1 quantization applied to serving state (kv_quant).  The
+    cache tensors are updated in place and returned."""
+    pos = torch.as_tensor(pos, device=x.device)
+    q, k, v = attn_qkv(p, a, x, pos.reshape(1), backend=backend)
+    k_full, v_full = _cache_write(cache, k, v, pos, q.dtype)
+    mask = _decode_mask(k_full.shape[1], pos, _window(a, window_override))
+    out = gqa_attention(q, k_full, v_full, mask[None, :])
+    return (linear(p["wo"], out.reshape(x.shape[0], 1, -1), backend=backend),
+            cache)
+
+
+def attn_decode_multi(p: Params, a: AttnConfig, x: torch.Tensor,
+                      pos: torch.Tensor, cache: Tuple[torch.Tensor, ...], *,
+                      window_override: Optional[int] = None,
+                      backend: kops.Backend = "auto"
+                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One-token decode with **per-row** positions (continuous batching).
+
+    x: (B, 1, d_model); pos: (B,) — each slot sits at its own position in
+    the shared cache, so slots admitted at different times decode in one
+    fixed-shape step.  Cache layouts as in :func:`attn_decode`; each row's
+    new K/V lands at its own ``pos[b]`` (clamped) and each row gets its own
+    causal (and optional sliding-window) mask."""
+    q, k, v = attn_qkv(p, a, x, pos[:, None], backend=backend)
+    k_full, v_full = _cache_write(cache, k, v, pos, q.dtype)
+    mask = _decode_mask(k_full.shape[1], pos, _window(a, window_override))
+    out = gqa_attention(q, k_full, v_full, mask[:, None, :])
+    return (linear(p["wo"], out.reshape(x.shape[0], 1, -1), backend=backend),
+            cache)
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per-(token, head) quantization of K/V (B, S, K, D)."""
+    xf = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp_min(absmax, 1e-6) / 127.0            # (B, S, K)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -128, 127)
+    return q.to(torch.int8), scale
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MlpConfig:
+    d_model: int
+    d_ff: int
+    kind: str = "swiglu"      # 'swiglu' | 'gelu' | 'squared_relu'
+    bias: bool = False
+
+
+def mlp_init(generator: torch.Generator, m: MlpConfig, quant: Optional[str],
+             dtype: torch.dtype = torch.bfloat16) -> Params:
+    p = {}
+    if m.kind == "swiglu":
+        p["w_gate"] = linear_init(generator, m.d_model, m.d_ff, bias=m.bias,
+                                  quant=quant, dtype=dtype)
+    p["w_up"] = linear_init(generator, m.d_model, m.d_ff, bias=m.bias,
+                            quant=quant, dtype=dtype)
+    p["w_down"] = linear_init(generator, m.d_ff, m.d_model, bias=m.bias,
+                              quant=quant, dtype=dtype)
+    return p
+
+
+def mlp_forward(p: Params, m: MlpConfig, x: torch.Tensor, *,
+                backend: kops.Backend = "auto") -> torch.Tensor:
+    if m.kind == "swiglu":
+        h = F.silu(linear(p["w_gate"], x, backend=backend)) \
+            * linear(p["w_up"], x, backend=backend)
+    elif m.kind == "gelu":           # jax.nn.gelu's default: tanh form
+        h = F.gelu(linear(p["w_up"], x, backend=backend), approximate="tanh")
+    elif m.kind == "squared_relu":   # nemotron-4 [arXiv:2402.16819]
+        h = torch.square(F.relu(linear(p["w_up"], x, backend=backend)))
+    else:
+        raise ValueError(m.kind)
+    return linear(p["w_down"], h, backend=backend)

@@ -192,36 +192,21 @@ def mamba_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
-def _layer(blocks: Params, layer: int) -> Params:
-    """Views of one layer's slice of the stacked block params."""
-    if isinstance(blocks, dict):
-        return {k: _layer(v, layer) for k, v in blocks.items()}
-    return blocks[layer]
-
-
-def _to(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+_layer = cm.layer_slice
 
 
 def model_init(generator: torch.Generator, cfg: ArchConfig, *,
                device: torch.device) -> Params:
     """Random params drawn from ``generator`` (on its device), placed on
-    ``device``: ``{"embed", "blocks" (stacked over layers), "final_norm"}``."""
+    ``device``: ``{"embed", "blocks" (stacked over layers), "final_norm"}``,
+    the blocks drawn and stacked layer by layer."""
     emb = cm.embed_init(generator, cfg.vocab, cfg.d_model, cfg.dtype)
-    blocks = _stack([{"ln": cm.rmsnorm_init(cfg.d_model, generator.device),
-                      "mixer": mamba_init(generator, cfg)}
-                     for _ in range(cfg.n_layers)])
-    return _to({"embed": emb, "blocks": blocks,
-                "final_norm": cm.rmsnorm_init(cfg.d_model, generator.device)},
-               device)
+    blocks = cm.stack_layers(
+        lambda: {"ln": cm.rmsnorm_init(cfg.d_model, generator.device),
+                 "mixer": mamba_init(generator, cfg)},
+        cfg.n_layers, device)
+    return {"embed": {"emb": emb["emb"].to(device)}, "blocks": blocks,
+            "final_norm": cm.rmsnorm_init(cfg.d_model, device)}
 
 
 def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
@@ -237,17 +222,25 @@ def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     return cm.unembed(params["embed"], x)
 
 
-def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
-               device: torch.device) -> Dict[str, torch.Tensor]:
-    """The decode state arena: conv (L, B, K - 1, C) in ``cfg.dtype`` and ssm
-    (L, B, H, P, N) f32, zeros.  O(1) in ``cache_len``."""
+def cache_spec(cfg: ArchConfig, batch: int, cache_len: int
+               ) -> Dict[str, torch.Tensor]:
+    """Shape and dtype stand-ins (tensors on the ``meta`` device) of the
+    decode state arena: conv (L, B, K - 1, C) in ``cfg.dtype`` and ssm
+    (L, B, H, P, N) f32.  O(1) in ``cache_len``."""
     d_inner, h, g, n, conv_dim, _ = _dims(cfg)
     return {
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1,
-                             conv_dim), dtype=cfg.dtype, device=device),
-        "ssm": torch.zeros((cfg.n_layers, batch, h, cfg.ssm_headdim, n),
-                           dtype=torch.float32, device=device),
+        "conv": torch.empty((cfg.n_layers, batch, cfg.conv_kernel - 1,
+                             conv_dim), dtype=cfg.dtype, device="meta"),
+        "ssm": torch.empty((cfg.n_layers, batch, h, cfg.ssm_headdim, n),
+                           dtype=torch.float32, device="meta"),
     }
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """The decode state arena of :func:`cache_spec`, zeros, on ``device``."""
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in cache_spec(cfg, batch, cache_len).items()}
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

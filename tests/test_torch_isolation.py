@@ -13,7 +13,9 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs.base import get_config
 from repro_torch.core.quantize import calibration_samples
 from repro_torch.models.api import get_model
-from repro_torch.serving import (Engine, GroupedStreamEngine, ModelGroup,
+from repro_torch.launch import serve as launch_serve
+from repro_torch.serving import (ContinuousEngine, CyclicDecoder, Engine,
+                                 GroupedStreamEngine, ModelGroup,
                                  StreamEngine)
 from repro_torch.sim import (ReconstructionHead, build_autoencoder,
                              build_detector, recalibrate_threshold,
@@ -104,7 +106,35 @@ def test_llm_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         Engine(api, params, batch_slots=2, cache_len=8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         api.init_cache(2, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousEngine(api, params, batch_slots=2, cache_len=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CyclicDecoder(api.cfg, params, n_segments=2, batch=1, cache_len=8)
     # The explicit CPU request is honoured.
     engine = Engine(api, params, batch_slots=2, cache_len=8, device="cpu")
     assert engine.device.type == "cpu"
     assert engine.cache["ssm"].device.type == "cpu"
+    assert ContinuousEngine(api, params, batch_slots=2, cache_len=8,
+                            device="cpu").cache["ssm"].device.type == "cpu"
+    assert CyclicDecoder(api.cfg, params, n_segments=2, batch=1, cache_len=8,
+                         device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ("qwen3_8b", "granite_moe_1b_a400m"))
+def test_dense_and_moe_entry_points_refuse_to_fall_back_to_cpu(arch,
+                                                               monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    api = get_model(get_config(arch).reduced().with_(dtype=torch.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_cache(2, 8)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    for engine in (Engine, ContinuousEngine):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine(api, params, batch_slots=2, cache_len=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CyclicDecoder(api.cfg, params, n_segments=2, batch=1, cache_len=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--arch", arch, "--reduced"])
+    assert api.init_cache(2, 8, device="cpu")["k"].device.type == "cpu"

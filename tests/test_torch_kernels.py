@@ -254,6 +254,32 @@ def test_qmatmul_unaligned_operands(m):
           ref.qmatmul_ref(xq, wq, scale, bias))
 
 
+# qwen3-8b's SINT projections (K x N): wq and wo, wk and wv, gate and up,
+# down.
+QWEN3_SHAPES = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
+
+
+@pytest.mark.parametrize("m", (8, 64, 1024))
+@pytest.mark.parametrize("k,n", QWEN3_SHAPES)
+def test_qmatmul_qwen3_widths(k, n, m):
+    """qwen3-8b's four projection shapes at full width: K = 12288 walks 96
+    K steps of a tensor-core tile, and at M = 8 the streaming path reads a
+    50 MB weight.  torch.equal to the plain version."""
+    g = torch.Generator(device="cuda").manual_seed(k + n + m)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device="cuda") * 1e-5
+    bias = torch.randn(n, generator=g, device="cuda")
+    before = qmatmul.launches
+    got = ops.quantized_matmul(xq, wq, scale, bias)
+    assert qmatmul.launches == before + 1
+    check("SINT", got, ref.qmatmul_ref(xq, wq, scale, bias))
+    check("SINT", qmatmul.qmatmul(xq, wq, scale),
+          ref.qmatmul_ref(xq, wq, scale))
+
+
 def test_qmatmul_takes_int8_only():
     x = torch.zeros((4, 8), dtype=torch.int16, device="cuda")
     with pytest.raises(ValueError, match="int8"):
@@ -644,6 +670,30 @@ def test_mamba_engine_launches_its_kernels(quant):
                                             if quant else 0)
     want = Engine(get_model(cfg, backend="ref"), params, batch_slots=4,
                   cache_len=128).serve(reqs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+def test_qwen3_width_sint_engine_equals_plain_qmatmul():
+    """Two layers of qwen3-8b at full width (d 4096, 32 q and 8 kv heads of
+    128, d_ff 12288, vocab 151936), bf16 SINT, through the wave engine:
+    seven qmatmul launches per layer per forward, and tokens and prefill
+    logits equal to the same engine with qmatmul's plain version."""
+    cfg = get_config("qwen3_8b").with_(n_layers=2, quant="SINT")
+    params = get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, 100 + 20 * i),
+                    max_new_tokens=4) for i in range(3)]
+    before = qmatmul.launches
+    engine = Engine(get_model(cfg), params, batch_slots=4, cache_len=160)
+    got = engine.serve(reqs)
+    assert qmatmul.launches - before == 7 * cfg.n_layers * 4
+    plain = Engine(get_model(cfg, backend={"qmatmul": "ref"}), params,
+                   batch_slots=4, cache_len=160)
+    want = plain.serve(reqs)
+    assert torch.equal(engine.last_prefill_logits, plain.last_prefill_logits)
+    assert torch.isfinite(engine.last_prefill_logits).all()
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.tokens, w.tokens)
 
