@@ -23,7 +23,12 @@ stdout; a failing phase raises and the script exits non-zero:
              and 8), qwen3-8b's four (K x N = 4096 x 4096, 4096 x 1024,
              4096 x 12288, 12288 x 4096 at M = 8 x 1024 and 8) and
              granite-moe's two (1024 x 1024, 1024 x 512 at M = 512 and
-             8), and untimed checks
+             8), phase 13's: Jamba's six (8192 x 34944, 16384 x 8192,
+             8192 x 8192, 8192 x 1024, 8192 x 24576, 24576 x 8192 at
+             M = 4 x 1024 and 8), LLaVA-NeXT-34b's four (7168 x 7168,
+             7168 x 1024, 7168 x 20480, 20480 x 7168 at M = 2 x 3392 and
+             8) and whisper-base's three (512 x 512, 512 x 2048,
+             2048 x 512 at M = 8 x 1500 and 8), and untimed checks
              on both sides of its path switch (M = 8, 63, 64, 65, 1000 at
              K x N = 400 x 64, 256 x 4384, 256 x 1024, 16 x 2, and an
              operand off 16-byte alignment) (qmatmul); the
@@ -45,9 +50,12 @@ stdout; a failing phase raises and the script exits non-zero:
              N 128, G 1) at B 8 x T 1024 (the serve runs' prefill), a ragged
              T 1000 and one B 1 x T 32768 row against the chunked plain
              version (T zero-padded to its chunk), and B 2 x T 256
-             against the sequential recurrence, the final state at every
-             shape against ref.ssd_final_state_ref, and at the prefill
-             shape bf16 views of a conv output bit-equal to the same call
+             against the sequential recurrence; Jamba's (H 128, P 128,
+             N 128, G 8: two 64-column slices of each head) at B 4 x
+             T 1024 (run (A)'s prefill), a ragged T 1000 and B 1 x T 4096;
+             the final state at every
+             shape against ref.ssd_final_state_ref, and at the two prefill
+             shapes bf16 views of a conv output bit-equal to the same call
              on f32 copies and held to the plain versions on the same
              views (ssd_scan).  SINT must be
              torch.equal (grouped: the logit lanes; score lanes,
@@ -219,6 +227,43 @@ stdout; a failing phase raises and the script exits non-zero:
              f32 REAL through ContinuousEngine, 8 slots, 16 requests
              (prompts 64-256): greedy tokens equal to backend="ref", 48
              ssd_scan launches per admission.
+13. families — the last three families at full width, random weights from
+             a seed, each model freed before the next, peak memory printed
+             per run.  (A) jamba-1.5-large-398b bf16 SINT through the wave
+             Engine, 4 slots, 4 requests of 1024 prompt tokens, 16 greedy
+             new tokens: widths uncut (d 8192, 64/8 heads of 128, d_ff
+             24576, vocab 65536, 128 SSD heads of P 128, N 128, G 8, top-2);
+             depth cut to one super-block of 8 layers (attention at
+             position 3, 7 Mamba, 4 dense MLP, 4 MoE) and the experts from
+             16 to 8 (all 16 would be 77.3 GB of one super-block's experts
+             alone); 30 qmatmul launches per forward and 7 ssd_scan per
+             prefill; tokens and prefill logits torch.equal to the same
+             engine with qmatmul plain (the ssd_scan kernel in both); one
+             prefill and one decode step under torch.profiler.  (B) one of
+             its Mamba mixers, f32 REAL, B 1 x T 256: output and both states
+             within 1e-4 (of the largest) of the CPU's plain path.  (C)
+             (A)'s model through ContinuousEngine, 4 slots, 12 requests
+             (seeded prompts of 64-512 tokens, 8-24 new): tokens and step
+             count equal to the qmatmul-plain engine's, 7 ssd_scan launches
+             per admission.  (D) llava-next-34b bf16 SINT, all 60 layers
+             (d 7168, 56/8 heads of 128, d_ff 20480, vocab 64000), the wave
+             Engine with extras={"image_emb": (2, 2880, 1152)} from a seed,
+             512 text tokens, 16 new: 420 qmatmul launches per forward,
+             tokens and prefill logits torch.equal to the qmatmul-plain
+             twin, the prefix shown to move the text's logits, one prefill
+             under torch.profiler.  (E) (D) through the CyclicDecoder, 4
+             segments of 15 layers, batch 1, a PI control task per cycle:
+             tokens equal to the batch-1 wave engine's, every cycle under
+             the 100 ms scan cycle.  (F) whisper-base uncut (6 + 6 layers,
+             d 512, 8 heads, d_ff 2048, vocab 51865, 1500 frames),
+             extras={"frames": (8, 1500, 512)} from a seed, 64 prompt
+             tokens: bf16 SINT through the wave Engine, 32 new, tokens and
+             prefill logits equal to the qmatmul-plain twin, 96 qmatmul
+             launches per prefill (36 encoder, 60 decoder) and 48 per
+             decode step; f32 REAL, prefill and 8 greedy steps within 1e-4
+             (of the largest logit) of the CPU, tokens equal; and
+             ``python -m repro_torch.launch.serve --arch whisper_base`` and
+             ``--arch llava_next_34b --reduced`` on the card.
 
 Then the wall seconds of each phase and in all, and each trainer's wall
 seconds (``{"phase": "seconds"}``),
@@ -258,9 +303,12 @@ PRUNE_MS = (8, 1024)
 # Batches checked but not timed: the small-M path's ends and the first
 # large-M batch (sparse_matmul.plan switches above 32).
 PRUNE_CHECK_MS = (1, 32, 33)
-# ssd_scan shapes (B, T) at the Mamba-2 config's widths.
+# ssd_scan shapes (B, T) at the Mamba-2 config's widths (H 32, P 64, N 128,
+# G 1) and, "jamba_*", at Jamba's (H 128, P 128, N 128, G 8).  The bf16
+# views of a conv output run at the two "prefill" shapes.
 SSD_SHAPES = {"prefill": (8, 1024), "ragged": (8, 1000), "long": (1, 32768),
-              "vs_sequential": (2, 256)}
+              "vs_sequential": (2, 256), "jamba_prefill": (4, 1024),
+              "jamba_ragged": (4, 1000), "jamba_long": (1, 4096)}
 MAMBA_ARCH = "mamba2_370m"
 MAMBA_BATCH, MAMBA_PROMPT, MAMBA_NEW = 8, 1024, 32
 # A bf16 run's prefill logits carry bf16 rounding noise that the 48 random
@@ -316,6 +364,21 @@ WIDTH_TOL = 1e-4
 CONT_SLOTS, CONT_REQUESTS, CONT_PROMPTS, CONT_NEW = 8, 24, (64, 512), \
     (16, 48)
 SSM_REQUESTS, SSM_PROMPTS, SSM_NEW, SSM_CACHE = 16, (64, 256), (16, 32), 512
+# Phase 13: the last three families at full width (module docstring).  (A)
+# Jamba cut to JAMBA_LAYERS (one super-block) and JAMBA_EXPERTS experts;
+# (B) one of its Mamba mixers over MIXER_T steps; (C) (A)'s model through
+# JCONT_SLOTS continuous slots; (D), (E) llava-next-34b uncut, its image
+# prefix and LLAVA_TEXT text tokens; (F) whisper-base uncut.
+JAMBA_ARCH, LLAVA_ARCH, WHISPER_ARCH = ("jamba_1_5_large_398b",
+                                        "llava_next_34b", "whisper_base")
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
+JAMBA_BATCH, JAMBA_PROMPT, JAMBA_NEW, JAMBA_CACHE = 4, 1024, 16, 1088
+MIXER_T = 256
+JCONT_SLOTS, JCONT_REQUESTS, JCONT_PROMPTS, JCONT_NEW = 4, 12, (64, 512), \
+    (8, 24)
+LLAVA_BATCH, LLAVA_TEXT, LLAVA_NEW = 2, 512, 16
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW, WHISPER_CACHE = 8, 64, 32, 96
+WHISPER_CPU_STEPS = 8
 
 
 def emit(obj):
@@ -952,6 +1015,50 @@ def percentiles(xs):
             "p99": float(np.percentile(xs, 99)), "max": float(xs.max())}
 
 
+def counted_into(launches, fn):
+    """``fn()`` with every count set to 0 just before it and read just
+    after: (its result, the counts), the counts added to ``launches``."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k in COUNTED:
+        launches[k] += counts[k]
+    return out, counts
+
+
+def check_counts(run, counts, want):
+    if counts != want:
+        raise AssertionError(f"{run}: launches {counts}, expected {want}")
+
+
+def by_uid(done):
+    return {c.uid: np.asarray(c.tokens) for c in done}
+
+
+def same_tokens(run, got, want):
+    if sorted(got) != sorted(want) or any(
+            not np.array_equal(got[u], want[u]) for u in want):
+        bad = [u for u in want if not np.array_equal(got.get(u), want[u])]
+        raise AssertionError(f"{run}: tokens differ from the run it is held "
+                             f"to for requests {bad}")
+
+
+class PlcTask:
+    """A PLC's primary task, one step per scan cycle: a PI loop holding a
+    tank level at its set point (the control task of runs (v) and (E))."""
+
+    def __init__(self):
+        self.level, self.integral, self.cycles = 0.5, 0.0, 0
+
+    def __call__(self):
+        err = 0.6 - self.level
+        self.integral += err * SCAN_CYCLE_S
+        u = 0.8 * err + 0.2 * self.integral
+        self.level += SCAN_CYCLE_S * (u - 0.1 * self.level)
+        self.cycles += 1
+
+
 def llm_phase(dev, smi):
     """Phase 12 (module docstring): runs (u)-(z), the dense decoder and its
     MoE twin at full width through the wave Engine, the CyclicDecoder and
@@ -966,30 +1073,7 @@ def llm_phase(dev, smi):
     gen = torch.Generator(device=dev)
 
     def counted(fn):
-        """``fn()`` with every count set to 0 just before it and read just
-        after: (its result, the counts), the counts added to the phase's."""
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        counts = read_counts()
-        for k in COUNTED:
-            launches[k] += counts[k]
-        return out, counts
-
-    def check_counts(run, counts, want):
-        if counts != want:
-            raise AssertionError(f"{run}: launches {counts}, expected {want}")
-
-    def by_uid(done):
-        return {c.uid: np.asarray(c.tokens) for c in done}
-
-    def same_tokens(run, got, want):
-        if sorted(got) != sorted(want) or any(
-                not np.array_equal(got[u], want[u]) for u in want):
-            bad = [u for u in want if not np.array_equal(got.get(u),
-                                                         want[u])]
-            raise AssertionError(f"{run}: tokens differ from the run it is "
-                                 f"held to for requests {bad}")
+        return counted_into(launches, fn)
 
     def emit_row(run, row):
         emit({"phase": "llm", "run": run, "nvidia_smi": smi, **row})
@@ -1108,17 +1192,7 @@ def llm_phase(dev, smi):
     del batch, events, cache, lg
 
     # -- (v) §6.3: the same model decoding in CYCLIC_SEGMENTS cycles ----------
-    plc = {"level": 0.5, "integral": 0.0, "cycles": 0}
-
-    def control_task():
-        """A PLC's primary task, one step per scan cycle: a PI loop holding
-        a tank level at its set point."""
-        err = 0.6 - plc["level"]
-        plc["integral"] += err * SCAN_CYCLE_S
-        u = 0.8 * err + 0.2 * plc["integral"]
-        plc["level"] += SCAN_CYCLE_S * (u - 0.1 * plc["level"])
-        plc["cycles"] += 1
-
+    control_task = PlcTask()
     one = {"tokens": torch.from_numpy(prompts[:1]).to(dev)}
 
     def cyclic():
@@ -1140,9 +1214,9 @@ def llm_phase(dev, smi):
     if not np.array_equal(np.asarray(ctoks), wave1):
         raise AssertionError(f"v: cyclic tokens {ctoks} differ from the "
                              f"batch-1 wave engine's {wave1.tolist()}")
-    if plc["cycles"] != len(bounds) * (LLM_NEW - 1) \
-            or len(stats.cycle_times_s) != plc["cycles"]:
-        raise AssertionError(f"v: {plc['cycles']} control steps, "
+    if control_task.cycles != len(bounds) * (LLM_NEW - 1) \
+            or len(stats.cycle_times_s) != control_task.cycles:
+        raise AssertionError(f"v: {control_task.cycles} control steps, "
                              f"{len(stats.cycle_times_s)} cycle times")
     ct = stats.cycle_times_s
     emit_row("v_qwen3_8b_sint_cyclic", {
@@ -1152,7 +1226,7 @@ def llm_phase(dev, smi):
         "cycles_over_scan_cycle": int(sum(c > SCAN_CYCLE_S for c in ct)),
         "decode_s": cyc_s, "tok_per_s": (LLM_NEW - 1) / cyc_s,
         "launches": counts, "equal_to_batch1_wave": True,
-        "control_level": plc["level"]})
+        "control_level": control_task.level})
     del params, api
 
     # -- (w) qwen3-8b widths, two layers, f32 REAL: card against the CPU ----
@@ -1286,6 +1360,452 @@ def llm_phase(dev, smi):
         "prompt_lens": [int(slens.min()), int(slens.max())],
         "new_tokens": [int(snews.min()), int(snews.max())],
         "held_to": "backend='ref' (sequential SSD)", "tokens_equal": True}))
+    return launches
+
+
+def families_phase(dev, smi):
+    """Phase 13 (module docstring): runs (A)-(F), the Jamba hybrid, the
+    LLaVA-NeXT VLM and the Whisper encoder-decoder at full width (Jamba's
+    depth and experts cut) through the wave Engine with its extras, the
+    ContinuousEngine and the CyclicDecoder, each SINT run held to its twin
+    with qmatmul plain and each f32 run to the CPU.  Returns the launch
+    counts of the runs."""
+    import contextlib
+    import gc
+    import io
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import mamba2
+    from repro_torch.models.api import get_model
+    from repro_torch.models.vlm import VISION_D
+    from repro_torch.serving import (ContinuousEngine, CyclicDecoder, Engine,
+                                     Request)
+
+    launches = dict.fromkeys(COUNTED, 0)
+    gen = torch.Generator(device=dev)
+    plain_q = {"qmatmul": "ref"}
+
+    def counted(fn):
+        return counted_into(launches, fn)
+
+    def emit_row(run, row):
+        emit({"phase": "families", "run": run, "nvidia_smi": smi, **row})
+
+    def fresh():
+        """Free what the last run left and restart the peak count."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9
+
+    def init(cfg, seed):
+        """(params on the card, seconds, GB of params)."""
+        gen.manual_seed(seed)
+        t0 = time.perf_counter()
+        params = get_model(cfg).init(gen)
+        torch.cuda.synchronize()
+        return (params, time.perf_counter() - t0,
+                nbytes(*tree_tensors(params)) / 1e9)
+
+    def held_to_plain(run, engine, done, plain, plain_done):
+        """Tokens and prefill logits torch.equal to the qmatmul-plain
+        twin's."""
+        got, want = engine.last_prefill_logits, plain.last_prefill_logits
+        if not torch.equal(got, want) or not torch.isfinite(got).all():
+            raise AssertionError(
+                f"{run}: prefill logits differ from the same path with plain "
+                f"qmatmul (by {float((got - want).abs().max())})")
+        same_tokens(run, by_uid(done), by_uid(plain_done))
+
+    def profile(run, fn, want):
+        """One call of ``fn`` under torch.profiler: wall and device busy
+        time, device time by kernel, and each counted kernel's records
+        (``want``: name -> records expected) with their time and share."""
+        timing = {}
+
+        def timed():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            timing["wall"] = time.perf_counter() - t0
+
+        events = device_events(timed)
+        by_name = {}
+        for name, us in events:
+            by_name[name] = by_name.get(name, 0.0) + us
+        busy = sum(by_name.values())
+        kernels = {}
+        for kname, n in want.items():
+            us = [u for name, u in events if kname in name]
+            if events and len(us) != n:
+                raise AssertionError(f"profile {run}: {len(us)} {kname} "
+                                     f"records, expected {n}")
+            kernels[kname] = {"records": len(us), "ms": sum(us) / 1e3,
+                              "share_of_busy": sum(us) / busy if busy
+                              else None}
+        emit({"phase": "profile", "run": run, "nvidia_smi": smi,
+              "wall_ms": timing["wall"] * 1e3, "device_busy_ms": busy / 1e3,
+              "device_busy_share": busy / 1e6 / timing["wall"],
+              "kernels": kernels, "device_events": len(events),
+              "top_device_us": sorted(by_name.items(),
+                                      key=lambda kv: -kv[1])[:15]})
+
+    def wave_row(cfg, done, batch, prompt, new, extra):
+        d = done[0]
+        return {"model": cfg.name, "dtype": str(cfg.dtype).split(".")[-1],
+                "quant": cfg.quant or "REAL", "layers": cfg.n_layers,
+                "d_model": cfg.d_model,
+                "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.d_head],
+                "d_ff": cfg.d_ff, "vocab": cfg.vocab, "batch": batch,
+                "prompt": prompt, "new_tokens": new,
+                "prefill_s": d.prefill_s,
+                "prefill_tok_per_s": batch * prompt / d.prefill_s,
+                "decode_s": d.decode_s,
+                "decode_tok_per_s": batch * (new - 1) / d.decode_s,
+                "first_tokens": [c.tokens[:8].tolist() for c in done],
+                **extra}
+
+    # -- (A) Jamba, bf16 SINT, wave Engine ----------------------------------
+    fresh()
+    jcfg = get_config(JAMBA_ARCH).with_(
+        n_layers=JAMBA_LAYERS, n_experts=JAMBA_EXPERTS, quant="SINT")
+    full = get_config(JAMBA_ARCH)
+    period = jcfg.attn_period
+    n_super = jcfg.n_layers // period
+    n_mamba = n_super * (period - 1)
+    # in/out_proj per Mamba layer, q/k/v/o, gate/up/down per dense MLP; the
+    # experts are plain, as in the reference.
+    j_forward = n_super * (2 * (period - 1) + 4 + 3 * (period - period // 2))
+    cuts = {"n_layers": [full.n_layers, jcfg.n_layers,
+                         "one super-block: attention at position 3, 7 "
+                         "Mamba, 4 dense MLP and 4 MoE layers"],
+            "n_experts": [full.n_experts, jcfg.n_experts,
+                          "all 16 of one super-block's 4 MoE layers are "
+                          "4 x 16 x 3 x 8192 x 24576 bf16 = 77.3 GB, "
+                          "beyond one card"]}
+    jparams, init_s, param_gb = init(jcfg, 41)
+    init_peak = peak_gb()
+    prompts = np.random.default_rng(41).integers(
+        0, jcfg.vocab, (JAMBA_BATCH, JAMBA_PROMPT))
+    jreqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=JAMBA_NEW)
+             for i in range(JAMBA_BATCH)]
+    japi = get_model(jcfg)
+    engine = Engine(japi, jparams, batch_slots=JAMBA_BATCH,
+                    cache_len=JAMBA_CACHE)
+    engine.serve([Request(uid=0, prompt=prompts[0, :64], max_new_tokens=2)])
+    torch.cuda.reset_peak_memory_stats()
+    done, counts = counted(lambda: engine.serve(jreqs))
+    check_counts("A", counts, expect(qmatmul=j_forward * JAMBA_NEW,
+                                     ssd_scan=n_mamba))
+    peak = peak_gb()
+    if np.stack([c.tokens for c in done]).shape != (JAMBA_BATCH, JAMBA_NEW):
+        raise AssertionError("A: a request stopped short")
+    plain = Engine(get_model(jcfg, backend=plain_q), jparams,
+                   batch_slots=JAMBA_BATCH, cache_len=JAMBA_CACHE)
+    plain_done = plain.serve(jreqs)
+    held_to_plain("A", engine, done, plain, plain_done)
+    del engine, plain
+    emit_row("A_jamba_bf16_sint_wave", wave_row(
+        jcfg, done, JAMBA_BATCH, JAMBA_PROMPT, JAMBA_NEW, {
+            "cuts": cuts, "experts": [jcfg.n_experts, jcfg.top_k],
+            "ssd": [jcfg.ssm_heads, jcfg.ssm_headdim, jcfg.ssm_state,
+                    jcfg.ssm_groups],
+            "cache_len": JAMBA_CACHE, "init_s": init_s,
+            "param_gb": param_gb, "init_peak_mem_gb": init_peak,
+            "peak_mem_gb": peak, "launches": counts,
+            "qmatmul_per_forward": j_forward, "ssd_scan_per_prefill": n_mamba,
+            "equal_to_plain_qmatmul_path": True,
+            "plain_prefill_s": plain_done[0].prefill_s,
+            "plain_decode_s": plain_done[0].decode_s}))
+
+    # One prefill and one decode step of (A) under torch.profiler.
+    batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+    cache, lg = japi.prefill(jparams, batch, JAMBA_CACHE)
+    profile("A_jamba_prefill",
+            lambda: japi.prefill(jparams, batch, JAMBA_CACHE),
+            {"qmatmul_kernel": j_forward, "ssd_scan_kernel": n_mamba})
+    cur = torch.argmax(lg[:, -1], dim=-1)[:, None]
+    japi.decode(jparams, cache, {"tokens": cur}, JAMBA_PROMPT)
+    profile("A_jamba_decode_step",
+            lambda: japi.decode(jparams, cache, {"tokens": cur},
+                                JAMBA_PROMPT + 1),
+            {"qmatmul_kernel": j_forward, "ssd_scan_kernel": 0})
+    del batch, cache, lg, cur
+
+    # -- (C) (A)'s model through the ContinuousEngine ------------------------
+    rng = np.random.default_rng(43)
+    lens = rng.integers(JCONT_PROMPTS[0], JCONT_PROMPTS[1] + 1,
+                        JCONT_REQUESTS)
+    news = rng.integers(JCONT_NEW[0], JCONT_NEW[1] + 1, JCONT_REQUESTS)
+    creqs = [Request(uid=i, prompt=rng.integers(0, jcfg.vocab, lens[i]),
+                     max_new_tokens=int(news[i]))
+             for i in range(JCONT_REQUESTS)]
+
+    def continuous(backend):
+        eng = ContinuousEngine(get_model(jcfg, backend=backend), jparams,
+                               batch_slots=JCONT_SLOTS, cache_len=JAMBA_CACHE)
+        eng.serve(creqs[:1])                  # warm-up
+        return eng
+
+    eng = continuous("auto")
+    torch.cuda.reset_peak_memory_stats()
+    done, counts = counted(lambda: eng.serve(creqs))
+    st = eng.last_stats
+    check_counts("C", counts, expect(
+        qmatmul=j_forward * (st.admitted + st.steps),
+        ssd_scan=n_mamba * st.admitted))
+    peak = peak_gb()
+    plain = continuous(plain_q)
+    same_tokens("C", by_uid(done), by_uid(plain.serve(creqs)))
+    if plain.last_stats.steps != st.steps or any(
+            len(c.tokens) != int(news[c.uid]) for c in done):
+        raise AssertionError(f"C: {st.steps} steps against "
+                             f"{plain.last_stats.steps}, or a request "
+                             "stopped short")
+    n_tok = sum(len(c.tokens) for c in done)
+    prefill = sum(c.prefill_s for c in done)
+    emit_row("C_jamba_bf16_sint_continuous", {
+        "model": jcfg.name, "cuts": cuts, "slots": JCONT_SLOTS,
+        "requests": len(done), "steps": st.steps, "admitted": st.admitted,
+        "prompt_lens": [int(lens.min()), int(lens.max())],
+        "new_tokens": [int(news.min()), int(news.max())],
+        "wall_s": st.wall_s, "tokens": n_tok, "tok_per_s": n_tok / st.wall_s,
+        "admission_prefill_s": prefill,
+        "step_ms": (st.wall_s - prefill) / st.steps * 1e3,
+        "finished_s": percentiles([c.finished_s for c in done]),
+        "peak_mem_gb": peak, "launches": counts,
+        "held_to": "same engine, qmatmul plain", "tokens_equal": True,
+        "steps_equal": True})
+    del eng, plain, jparams, japi
+
+    # -- (B) one Jamba Mamba mixer, f32 REAL: card against the CPU -----------
+    fresh()
+    mcfg = get_config(JAMBA_ARCH).with_(dtype=torch.float32)
+    cpu_gen = torch.Generator().manual_seed(47)
+    p_cpu = mamba2.mamba_init(cpu_gen, mcfg)
+    x_cpu = torch.randn((1, MIXER_T, mcfg.d_model), generator=cpu_gen)
+    p_card = tree_to(p_cpu, dev)
+    t0 = time.perf_counter()
+    (out, state), counts = counted(lambda: mamba2._mamba_forward_state(
+        p_card, mcfg, x_cpu.to(dev)))
+    card_s = time.perf_counter() - t0
+    check_counts("B", counts, expect(ssd_scan=1))
+    t0 = time.perf_counter()
+    want, want_state = mamba2._mamba_forward_state(p_cpu, mcfg, x_cpu)
+    cpu_s = time.perf_counter() - t0
+    errs = {name: float((got.cpu() - ref_).abs().max() / ref_.abs().max())
+            for name, got, ref_ in (("out", out, want),
+                                    ("conv_state", state["conv"],
+                                     want_state["conv"]),
+                                    ("ssm_state", state["ssm"],
+                                     want_state["ssm"]))}
+    if max(errs.values()) > WIDTH_TOL or not torch.isfinite(out).all():
+        raise AssertionError(f"B: the card's mixer is {errs} of the largest "
+                             f"from the CPU's (tolerance {WIDTH_TOL})")
+    emit_row("B_jamba_mamba_mixer_f32_card_vs_cpu", {
+        "model": mcfg.name, "t": MIXER_T, "d_model": mcfg.d_model,
+        "ssd": [mcfg.ssm_heads, mcfg.ssm_headdim, mcfg.ssm_state,
+                mcfg.ssm_groups],
+        "max_rel_err": errs, "tolerance": WIDTH_TOL, "card_s": card_s,
+        "cpu_s": cpu_s, "launches": counts, "peak_mem_gb": peak_gb(),
+        "tf32": torch.backends.cuda.matmul.allow_tf32})
+    del p_cpu, p_card, out, state, want, want_state
+
+    # -- (D) llava-next-34b, bf16 SINT, wave Engine with the image prefix ----
+    fresh()
+    lcfg = get_config(LLAVA_ARCH).with_(quant="SINT")
+    l_forward = 7 * lcfg.n_layers        # q, k, v, o, gate, up, down
+    n_img = lcfg.num_image_tokens
+    l_cache = n_img + LLAVA_TEXT + LLAVA_NEW
+    lparams, init_s, param_gb = init(lcfg, 53)
+    init_peak = peak_gb()
+    image = torch.randn((LLAVA_BATCH, n_img, VISION_D), generator=gen,
+                        device=dev).to(lcfg.dtype)
+    texts = np.random.default_rng(53).integers(
+        0, lcfg.vocab, (LLAVA_BATCH, LLAVA_TEXT))
+    lreqs = [Request(uid=i, prompt=texts[i], max_new_tokens=LLAVA_NEW)
+             for i in range(LLAVA_BATCH)]
+    lapi = get_model(lcfg)
+    engine = Engine(lapi, lparams, batch_slots=LLAVA_BATCH,
+                    cache_len=l_cache, extras={"image_emb": image})
+    torch.cuda.reset_peak_memory_stats()
+    done, counts = counted(lambda: engine.serve(lreqs))
+    check_counts("D", counts, expect(qmatmul=l_forward * LLAVA_NEW))
+    peak = peak_gb()
+    plain = Engine(get_model(lcfg, backend=plain_q), lparams,
+                   batch_slots=LLAVA_BATCH, cache_len=l_cache,
+                   extras={"image_emb": image})
+    plain_done = plain.serve(lreqs)
+    held_to_plain("D", engine, done, plain, plain_done)
+    logits = engine.last_prefill_logits.clone()
+    del engine, plain
+    # The projected prefix moves the text's logits.
+    batch = {"tokens": torch.from_numpy(texts).to(dev), "image_emb": image}
+    _, moved = lapi.prefill(lparams, dict(batch, image_emb=image + 1),
+                            l_cache)
+    prefix_moves = float((moved[:, -1] - logits).abs().max())
+    if not prefix_moves > 0:
+        raise AssertionError("D: the image prefix does not reach the text's "
+                             "logits")
+    del moved
+    emit_row("D_llava_bf16_sint_wave", wave_row(
+        lcfg, done, LLAVA_BATCH, LLAVA_TEXT, LLAVA_NEW, {
+            "image_tokens": n_img, "vision_d": VISION_D,
+            "prefill_positions": n_img + LLAVA_TEXT, "cache_len": l_cache,
+            "cuts": {}, "init_s": init_s, "param_gb": param_gb,
+            "init_peak_mem_gb": init_peak, "peak_mem_gb": peak,
+            "launches": counts, "qmatmul_per_forward": l_forward,
+            "equal_to_plain_qmatmul_path": True,
+            "prefix_moves_logits_by": prefix_moves,
+            "plain_prefill_s": plain_done[0].prefill_s,
+            "plain_decode_s": plain_done[0].decode_s}))
+    profile("D_llava_prefill",
+            lambda: lapi.prefill(lparams, batch, l_cache),
+            {"qmatmul_kernel": l_forward})
+    del batch
+
+    # -- (E) (D)'s model in CYCLIC_SEGMENTS scan cycles per token ------------
+    control_task = PlcTask()
+    one = {"tokens": torch.from_numpy(texts[:1]).to(dev),
+           "image_emb": image[:1]}
+
+    def cyclic():
+        cache, lg = lapi.prefill(lparams, one, l_cache)
+        first = torch.argmax(lg[:, -1], dim=-1)
+        cd = CyclicDecoder(lcfg, lparams, n_segments=CYCLIC_SEGMENTS,
+                           batch=1, cache_len=l_cache)
+        t0 = time.perf_counter()
+        toks, _, stats = cd.decode_tokens(cache, first, LLAVA_TEXT,
+                                          LLAVA_NEW - 1,
+                                          control_task=control_task)
+        return ([int(first[0])] + toks, stats, cd.bounds,
+                time.perf_counter() - t0)
+
+    (ctoks, stats, bounds, cyc_s), counts = counted(cyclic)
+    check_counts("E", counts, expect(qmatmul=l_forward * LLAVA_NEW))
+    wave1 = Engine(lapi, lparams, batch_slots=1, cache_len=l_cache,
+                   extras={"image_emb": image[:1]}).serve([lreqs[0]])[0]
+    if not np.array_equal(np.asarray(ctoks), wave1.tokens):
+        raise AssertionError(f"E: cyclic tokens {ctoks} differ from the "
+                             f"batch-1 wave engine's {wave1.tokens.tolist()}")
+    ct = stats.cycle_times_s
+    if control_task.cycles != len(bounds) * (LLAVA_NEW - 1) \
+            or len(ct) != control_task.cycles or max(ct) >= SCAN_CYCLE_S:
+        raise AssertionError(f"E: {control_task.cycles} control steps, "
+                             f"{len(ct)} cycle times, the longest {max(ct)} s "
+                             f"against the {SCAN_CYCLE_S} s scan cycle")
+    emit_row("E_llava_sint_cyclic", {
+        "model": lcfg.name, "segments": bounds, "tokens": len(ctoks),
+        "cycles": len(ct), "cycle_s": percentiles(ct),
+        "scan_cycle_s": SCAN_CYCLE_S, "cycles_over_scan_cycle": 0,
+        "decode_s": cyc_s, "tok_per_s": (LLAVA_NEW - 1) / cyc_s,
+        "launches": counts, "equal_to_batch1_wave": True,
+        "control_level": control_task.level})
+    del lparams, lapi, image, one
+
+    # -- (F) whisper-base, uncut: bf16 SINT against its plain-qmatmul twin ---
+    fresh()
+    wcfg = get_config(WHISPER_ARCH).with_(quant="SINT")
+    # Encoder: q, k, v, o, up, down; decoder: self q/k/v/o, cross q/k/v/o,
+    # up, down.  A decode step: self q/k/v/o, cross q and o, up, down.
+    w_prefill = 6 * wcfg.n_layers + 10 * wcfg.n_layers
+    w_step = 8 * wcfg.n_layers
+    wparams, init_s, param_gb = init(wcfg, 59)
+    frames = torch.randn((WHISPER_BATCH, wcfg.encoder_frames, wcfg.d_model),
+                         generator=gen, device=dev).to(wcfg.dtype)
+    wprompts = np.random.default_rng(59).integers(
+        0, wcfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT))
+    wreqs = [Request(uid=i, prompt=wprompts[i], max_new_tokens=WHISPER_NEW)
+             for i in range(WHISPER_BATCH)]
+
+    def whisper_engine(backend):
+        return Engine(get_model(wcfg, backend=backend), wparams,
+                      batch_slots=WHISPER_BATCH, cache_len=WHISPER_CACHE,
+                      extras={"frames": frames})
+
+    engine = whisper_engine("auto")
+    engine.serve(wreqs[:1])                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    done, counts = counted(lambda: engine.serve(wreqs))
+    check_counts("F", counts, expect(
+        qmatmul=w_prefill + w_step * (WHISPER_NEW - 1)))
+    peak = peak_gb()
+    plain = whisper_engine(plain_q)
+    plain_done = plain.serve(wreqs)
+    held_to_plain("F", engine, done, plain, plain_done)
+    del engine, plain
+    emit_row("F_whisper_bf16_sint_wave", wave_row(
+        wcfg, done, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW, {
+            "encoder_frames": wcfg.encoder_frames, "cache_len": WHISPER_CACHE,
+            "cuts": {}, "init_s": init_s, "param_gb": param_gb,
+            "peak_mem_gb": peak, "launches": counts,
+            "qmatmul_per_prefill": w_prefill, "qmatmul_per_step": w_step,
+            "equal_to_plain_qmatmul_path": True,
+            "plain_prefill_s": plain_done[0].prefill_s,
+            "plain_decode_s": plain_done[0].decode_s}))
+    del wparams, frames
+
+    # ... f32 REAL, card against the CPU over the prefill and
+    # WHISPER_CPU_STEPS greedy steps.
+    fresh()
+    fcfg = get_config(WHISPER_ARCH).with_(dtype=torch.float32)
+    cpu_gen = torch.Generator().manual_seed(61)
+    cpu_params = get_model(fcfg).init(cpu_gen, device="cpu")
+    cpu_frames = torch.randn((WHISPER_BATCH, fcfg.encoder_frames,
+                              fcfg.d_model), generator=cpu_gen)
+    card_params = tree_to(cpu_params, dev)
+    fapi = get_model(fcfg)
+
+    def greedy(p, device):
+        cache, lg = fapi.prefill(p, {"tokens": torch.from_numpy(
+            wprompts).to(device), "frames": cpu_frames.to(device)},
+            WHISPER_CACHE)
+        outs, toks = [lg[:, -1].cpu()], []
+        for step in range(WHISPER_CPU_STEPS):
+            cur = torch.argmax(lg[:, -1], dim=-1)
+            toks.append(cur.cpu().numpy())
+            cache, lg = fapi.decode(p, cache, {"tokens": cur[:, None]},
+                                    WHISPER_PROMPT + step)
+            outs.append(lg[:, -1].cpu())
+        return torch.stack(outs), np.stack(toks)
+
+    t0 = time.perf_counter()
+    card_logits, card_toks = greedy(card_params, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_logits, cpu_toks = greedy(cpu_params, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    f_err = float((card_logits - cpu_logits).abs().max()
+                  / cpu_logits.abs().max())
+    if f_err > WIDTH_TOL or not np.array_equal(card_toks, cpu_toks):
+        raise AssertionError(f"F: logits {f_err} of the largest from the "
+                             f"CPU (tolerance {WIDTH_TOL}), tokens equal "
+                             f"{np.array_equal(card_toks, cpu_toks)}")
+    emit_row("F_whisper_f32_card_vs_cpu", {
+        "model": fcfg.name, "batch": WHISPER_BATCH,
+        "encoder_frames": fcfg.encoder_frames, "prompt": WHISPER_PROMPT,
+        "decode_steps": WHISPER_CPU_STEPS, "logits_max_rel_err": f_err,
+        "tolerance": WIDTH_TOL, "tokens_equal": True, "card_s": card_s,
+        "cpu_s": cpu_s, "tf32": torch.backends.cuda.matmul.allow_tf32})
+    del cpu_params, card_params
+
+    # The launcher on the card: whisper-base uncut, llava-next reduced.
+    fresh()
+    for argv in (["--arch", WHISPER_ARCH],
+                 ["--arch", LLAVA_ARCH, "--reduced"]):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            launch_serve.main(argv)
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("req ")]
+        if len(lines) != 4:
+            raise AssertionError(f"launch.serve {argv}: {out.getvalue()}")
+        emit_row("F_launch_serve", {"argv": argv, "requests": len(lines),
+                                    "wall_s": time.perf_counter() - t0,
+                                    "first": lines[0]})
     return launches
 
 
@@ -1683,6 +2203,31 @@ def main():
         ("granite-moe wq/wo", g_d, g_d, (CONT_PROMPTS[1], CONT_SLOTS)),
         ("granite-moe wk/wv", g_d, g_kv, (CONT_PROMPTS[1], CONT_SLOTS)),
     ]
+    # Phase 13's families: Jamba (run (A): 4 x 1024 prompt tokens), LLaVA
+    # (run (D): 2 x (2880 image + 512 text) tokens) and Whisper (run (F):
+    # the encoder's 8 x 1500 frames), each also at M = 8.
+    jcfg, lcfg, wcfg = (get_config(a) for a in (JAMBA_ARCH, LLAVA_ARCH,
+                                                WHISPER_ARCH))
+    j_m = (JAMBA_BATCH * JAMBA_PROMPT, 8)
+    l_m = (LLAVA_BATCH * (lcfg.num_image_tokens + LLAVA_TEXT), 8)
+    w_m = (WHISPER_BATCH * wcfg.encoder_frames, 8)
+    j_d, l_d, w_d = jcfg.d_model, lcfg.d_model, wcfg.d_model
+    llm_shapes += [
+        ("jamba in_proj", j_d, 2 * jcfg.d_inner + 2 * jcfg.ssm_groups
+         * jcfg.ssm_state + jcfg.ssm_heads, j_m),
+        ("jamba out_proj", jcfg.d_inner, j_d, j_m),
+        ("jamba wq/wo", j_d, j_d, j_m),
+        ("jamba wk/wv", j_d, jcfg.n_kv_heads * jcfg.d_head, j_m),
+        ("jamba gate/up", j_d, jcfg.d_ff, j_m),
+        ("jamba down", jcfg.d_ff, j_d, j_m),
+        ("llava wq/wo", l_d, l_d, l_m),
+        ("llava wk/wv", l_d, lcfg.n_kv_heads * lcfg.d_head, l_m),
+        ("llava gate/up", l_d, lcfg.d_ff, l_m),
+        ("llava down", lcfg.d_ff, l_d, l_m),
+        ("whisper attention", w_d, w_d, w_m),
+        ("whisper up", w_d, wcfg.d_ff, w_m),
+        ("whisper down", wcfg.d_ff, w_d, w_m),
+    ]
     for name, k, n, ms, m in [(*shape, m) for shape in llm_shapes
                               for m in shape[3]]:
         card_gen.manual_seed(k + n + m)
@@ -1836,24 +2381,24 @@ def main():
               "nnz_blocks": w.nnz_blocks, "pruned_block_columns": dead_cols,
               "max_abs_err": err})
 
-    # ssd_scan at the Mamba-2 config's SSD widths.
-    def ssd_inputs(bsz, t, seed):
+    # ssd_scan at the Mamba-2 config's and Jamba's SSD widths.
+    def ssd_inputs(cfg, bsz, t, seed):
         card_gen.manual_seed(seed)
 
         def randn(*shape):
             return torch.randn(shape, generator=card_gen, device=dev)
-        h, g, n = mcfg.ssm_heads, mcfg.ssm_groups, mcfg.ssm_state
-        return (randn(bsz, t, h, mcfg.ssm_headdim),
+        h, g, n = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
+        return (randn(bsz, t, h, cfg.ssm_headdim),
                 torch.nn.functional.softplus(randn(bsz, t, h)) * 0.2,
                 -torch.exp(randn(h) * 0.5),
                 randn(bsz, t, g, n) * 0.3, randn(bsz, t, g, n) * 0.3)
 
-    def conv_output_views(bsz, t, seed):
+    def conv_output_views(cfg, bsz, t, seed):
         """x, B and C as the model hands them to the kernel: bf16 views of
         one (B, T, H P + 2 G N) conv output."""
         card_gen.manual_seed(seed)
-        h, g, n, p = (mcfg.ssm_heads, mcfg.ssm_groups, mcfg.ssm_state,
-                      mcfg.ssm_headdim)
+        h, g, n, p = (cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state,
+                      cfg.ssm_headdim)
         xbc = (torch.randn((bsz, t, h * p + 2 * g * n), generator=card_gen,
                            device=dev) * 0.5).to(torch.bfloat16)
         return (xbc[..., :h * p].reshape(bsz, t, h, p),
@@ -1872,7 +2417,8 @@ def main():
 
     ssd_rows, ssd_err = [], 0.0
     for shape, (bsz, t) in SSD_SHAPES.items():
-        args = ssd_inputs(bsz, t, seed=t)
+        scfg = jcfg if shape.startswith("jamba") else mcfg
+        args = ssd_inputs(scfg, bsz, t, seed=t)
         got, state = ssd_scan.ssd_scan(*args, return_state=True)
         against_recurrence = shape == "vs_sequential"
         plain = functools.partial(ops.ssd, *args, backend=(
@@ -1881,9 +2427,9 @@ def main():
         state_err = ssd_close(f"{shape} final state", state,
                               ref.ssd_final_state_ref(*args[:4]))
         ssd_err = max(ssd_err, err, state_err)
-        row = {"shape": shape, "b": bsz, "t": t, "h": mcfg.ssm_heads,
-               "p": mcfg.ssm_headdim, "n": mcfg.ssm_state,
-               "g": mcfg.ssm_groups,
+        row = {"shape": shape, "b": bsz, "t": t, "h": scfg.ssm_heads,
+               "p": scfg.ssm_headdim, "n": scfg.ssm_state,
+               "g": scfg.ssm_groups,
                "plain": "ssd_scan_ref" if against_recurrence else "ssd_chunked_ref",
                "max_abs_err": err, "state_max_abs_err": state_err}
         if not against_recurrence:
@@ -1899,10 +2445,10 @@ def main():
                 *args, got, state, ssd_scan.KERNEL_CHUNK)
             row["bound_us"] = row["bound_ms"] * 1e3
             row["cuda_core_bound_ms"], _ = ssd_cuda_core_bound(*args)
-        if shape == "prefill":
+        if shape in ("prefill", "jamba_prefill"):
             # The main path's call: bf16 views of a conv output, read in
             # place; bit-equal to the same call on f32 contiguous copies.
-            x16, b16, c16 = conv_output_views(bsz, t, seed=t + 1)
+            x16, b16, c16 = conv_output_views(scfg, bsz, t, seed=t + 1)
             dt_, a_ = args[1:3]
             views = (x16, dt_, a_, b16, c16)
             copies = (x16.float().contiguous(), dt_, a_,
@@ -2588,6 +3134,11 @@ def main():
     for k in COUNTED:
         launches[k] += llm_launches[k]
     phase_done("llm")
+    # -- 13. families: Jamba, LLaVA-NeXT and Whisper at full width ----------
+    fam_launches = families_phase(dev, smi)
+    for k in COUNTED:
+        launches[k] += fam_launches[k]
+    phase_done("families")
     emit({"phase": "seconds", "total": time.perf_counter() - started,
           **seconds, "trainer_wall_s": train_walls})
 
@@ -2606,6 +3157,7 @@ def main():
     s_head = next(r for r in s_rows if r["m"] == PRUNE_MS[0]
                   and r["sparsity"] == 0.5 and r["block"] == [128, 128])
     ssd_head = next(r for r in ssd_rows if r["shape"] == "prefill")
+    ssd_jamba = next(r for r in ssd_rows if r["shape"] == "jamba_prefill")
     source = ("torch.profiler" if fused_head["ms"] is not None
               and all(r["ms"] is not None for r in q_main) else "call_ms")
     kernels = [
@@ -2637,6 +3189,7 @@ def main():
          "shape": "the four detector SINT layers at M=1024, summed "
                   "(one per-layer step)",
          "llm_launches": llm_launches["qmatmul"],
+         "families_launches": fam_launches["qmatmul"],
          "timed": q_main, "timed_llm_sint": q_llm},
         {"name": "grouped_fused_mlp", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_mlp.cu",
@@ -2672,7 +3225,9 @@ def main():
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:85",
          "launches": launches["ssd_scan"],
-         "llm_launches": llm_launches["ssd_scan"], "max_abs_err": ssd_err,
+         "llm_launches": llm_launches["ssd_scan"],
+         "families_launches": fam_launches["ssd_scan"],
+         "max_abs_err": ssd_err,
          "ms": ms(ssd_head),
          "ms_source": ("torch.profiler" if ssd_head["ms"] is not None
                        else "call_ms"),
@@ -2686,6 +3241,10 @@ def main():
          "shape": f"{MAMBA_ARCH} prefill, B={ssd_head['b']} "
                   f"T={ssd_head['t']} H={ssd_head['h']} P={ssd_head['p']} "
                   f"N={ssd_head['n']} G={ssd_head['g']}",
+         "jamba": {k: ssd_jamba[k] for k in (
+             "b", "t", "h", "p", "n", "g", "ms", "call_ms", "plain_ms",
+             "bound_ms", "bound_by", "bf16_views_ms", "bf16_views_bound_ms",
+             "max_abs_err", "state_max_abs_err")},
          "timed": [r for r in ssd_rows if "ms" in r]},
     ]
     emit({"kernels": kernels})

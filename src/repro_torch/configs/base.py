@@ -3,9 +3,8 @@
 
 ``ArchConfig`` carries the same fields, properties and ``reduced()`` sizes as
 the reference; ``dtype`` is a :class:`torch.dtype`.  :func:`get_config`
-covers the configurations whose model family the port serves (``dense``,
-``moe`` and ``ssm``); the others (hybrid, vlm, audio) raise, naming
-ROADMAP §1 item 4b.
+covers every architecture of ``ARCH_IDS`` (all six families); an id that is
+not one raises.
 """
 
 from __future__ import annotations
@@ -23,17 +22,6 @@ ARCH_IDS = (
     "granite_moe_1b_a400m",
     "command_r_35b",
     "jamba_1_5_large_398b",
-    "nemotron_4_340b",
-    "qwen3_8b",
-    "command_r_plus_104b",
-    "mixtral_8x22b",
-)
-# The configurations whose family the port has (models/api.py): every dense
-# and moe configuration, and the attention-free mamba2.
-PORTED_ARCH_IDS = (
-    "mamba2_370m",
-    "granite_moe_1b_a400m",
-    "command_r_35b",
     "nemotron_4_340b",
     "qwen3_8b",
     "command_r_plus_104b",
@@ -132,11 +120,8 @@ class ArchConfig:
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    """The named configuration; raises for one whose family is not ported."""
-    if arch_id not in PORTED_ARCH_IDS:
-        known = "known" if arch_id in ARCH_IDS else "unknown"
-        raise ValueError(
-            f"{arch_id!r} ({known}) is not ported: the port serves "
-            f"{PORTED_ARCH_IDS}; the hybrid, vlm and audio families are "
-            "ROADMAP §1 item 4b")
+    """The named configuration; raises for an id not in ``ARCH_IDS``."""
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {arch_id!r}: the port serves "
+                         f"{ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG

@@ -6,9 +6,10 @@
 // behind repro.kernels.ops.ssd.  The TPU version runs a (heads, chunks) grid
 // with the chunk axis sequential, carrying the (P, N) state in VMEM scratch;
 // its wrapper repeats the B/C groups to heads and maps over the batch.  Here
-// ONE launch covers the batch: one 512-thread block per (head, batch row)
-// loops over the chunks in order and carries the state in shared memory, and
-// B/C are read by group index h / (H / G) — nothing is repeated to heads.
+// ONE launch covers the batch: one 512-thread block per (head, batch row,
+// 64-column slice of P) loops over the chunks in order and carries its rows
+// of the state in shared memory, and B/C are read by group index h / (H / G)
+// — nothing is repeated to heads.
 // The block also writes the final state S_T, (B, H, P, N) f32, the layout of
 // the decode cache's ssm arena, so the prefill needs no second pass for it.
 //
@@ -65,8 +66,18 @@
 // orders differ from the reference's: the result is held to the reference's
 // own tolerance (rtol 2e-4, atol 2e-5).
 //
+// Head dims past 64 (Jamba's P 128): the grid's third axis splits P into
+// slices of the instantiated tile width (64).  Column p of y and row p of the
+// state depend on column p of x alone (with the shared B, C and dt), so each
+// slice is exactly the P-64 computation on x[..., p0:p0 + 64]; a slice block
+// recomputes the scan and C Bᵀ, which are small beside its (L, P) products,
+// and shared memory stays the (64, N) instantiation's (219 KB in f32 at
+// N 128; a whole P = N = 128 block would need 291 KB, over the 227 KB a block
+// may have).  x's and y's head stride and the state's row count are the
+// whole P (`PH`), the tile's column offset blockIdx.z * 64.
+//
 // Left for later: wgmma (tf32 wants K-major operands), TMA, and splitting a
-// single long sequence over more blocks (B x H blocks only).
+// single long sequence over more blocks (B x H x P / 64 blocks only).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -183,7 +194,7 @@ ssd_scan_kernel(const T* __restrict__ x, long long x_sb, long long x_st,
                 const T* __restrict__ b, long long b_sb, long long b_st,
                 const T* __restrict__ c, long long c_sb, long long c_st,
                 float* __restrict__ y, float* __restrict__ state, int T_len,
-                int H, int G) {
+                int H, int G, int PH) {
   using S_ = Smem<T, P, N>;
   constexpr bool IN = sizeof(T) == 2;   // x, B and C exact in tf32 (bf16)
   constexpr int XS = S_::XS, BS = S_::BS, SS = S_::SS, MS = S_::MS;
@@ -203,11 +214,13 @@ ssd_scan_kernel(const T* __restrict__ x, long long x_sb, long long x_st,
   float* esv = sv + L;                           // [L] exp(s_t)
   float* wv = esv + L;                           // [L] exp(s_L - s_t) dt_t
 
-  const int h = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
+  // Head h, batch row bi, columns [p0, p0 + P) of the head's PH.
+  const int h = blockIdx.x, bi = blockIdx.y, p0 = blockIdx.z * P;
+  const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32, g8 = lane / 4, t4 = lane % 4;
   const int grp = h / (H / G);
   const float a_h = a[h];
-  const T* xb = x + bi * x_sb + h * P;
+  const T* xb = x + bi * x_sb + (long long)h * PH + p0;
   const T* bb = b + bi * b_sb + grp * N;
   const T* cb_ = c + bi * c_sb + grp * N;
   const float* dtb = dt + (size_t)bi * T_len * H + h;
@@ -410,8 +423,8 @@ ssd_scan_kernel(const T* __restrict__ x, long long x_sb, long long x_st,
       for (int half = 0; half < 2; ++half) {
         const int t = k * L + 16 * yi + g8 + 8 * half;
         if (t >= T_len) continue;
-        float* row = y + (((size_t)bi * T_len + t) * H + h) * P + 16 * yj +
-                     2 * t4;
+        float* row = y + (((size_t)bi * T_len + t) * H + h) * PH + p0 +
+                     16 * yj + 2 * t4;
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
           *(float2*)(row + 8 * nt) =
@@ -422,7 +435,7 @@ ssd_scan_kernel(const T* __restrict__ x, long long x_sb, long long x_st,
 
   if (state != nullptr) {
     __syncthreads();   // the last state update is done
-    float* out = state + ((size_t)bi * H + h) * P * N;
+    float* out = state + (((size_t)bi * H + h) * PH + p0) * N;
     for (int e = tid; e < P * N / 4; e += THREADS) {
       const int p = e / (N / 4), n = 4 * (e % (N / 4));
       *(float4*)(out + p * N + n) = *(const float4*)(St + p * SS + n);
@@ -435,21 +448,23 @@ static int launch(const void* x, long long x_sb, long long x_st,
                   const float* dt, const float* a, const void* b,
                   long long b_sb, long long b_st, const void* c,
                   long long c_sb, long long c_st, float* y, float* state,
-                  int B, int T_len, int H, int G, cudaStream_t stream) {
+                  int B, int T_len, int H, int G, int PH,
+                  cudaStream_t stream) {
   const size_t bytes = Smem<T, P, N>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       ssd_scan_kernel<T, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  ssd_scan_kernel<T, P, N><<<dim3(H, B), THREADS, bytes, stream>>>(
+  ssd_scan_kernel<T, P, N><<<dim3(H, B, PH / P), THREADS, bytes, stream>>>(
       (const T*)x, x_sb, x_st, dt, a, (const T*)b, b_sb, b_st, (const T*)c,
-      c_sb, c_st, y, state, T_len, H, G);
+      c_sb, c_st, y, state, T_len, H, G, PH);
   return (int)cudaGetLastError();
 }
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
 // launch was accepted), or cudaErrorInvalidValue for a (P, N) without an
-// instantiation.  x (B, T, H, P) and b/c (B, T, G, N) in f32 (bf16 == 0) or
+// instantiation (P 128 runs the P-64 instantiation on two column slices).
+// x (B, T, H, P) and b/c (B, T, G, N) in f32 (bf16 == 0) or
 // bf16 (bf16 == 1), each with element strides `*_sb` (batch) and `*_st`
 // (step) and its last two dimensions packed, every row 16-byte aligned;
 // dt (B, T, H) and a (H,) contiguous f32; y (B, T, H, P) contiguous f32;
@@ -464,15 +479,18 @@ extern "C" int ssd_scan_launch(const void* x, long long x_sb, long long x_st,
   const float *dtp = (const float*)dt, *ap = (const float*)a;
   float *yp = (float*)y, *sp = (float*)state;
   const cudaStream_t s = (cudaStream_t)stream;
-#define SSD_CASE(TT, PP, NN)                                                 \
+// SSD_CASE(type, P, N, tile): (P, N) runs the (tile, N) instantiation on
+// P / tile column slices of each head.
+#define SSD_CASE(TT, PP, NN, TILE)                                           \
   if (P == PP && N == NN)                                                    \
-    return launch<TT, PP, NN>(x, x_sb, x_st, dtp, ap, b, b_sb, b_st, c,      \
-                              c_sb, c_st, yp, sp, B, T, H, G, s);
+    return launch<TT, TILE, NN>(x, x_sb, x_st, dtp, ap, b, b_sb, b_st, c,    \
+                                c_sb, c_st, yp, sp, B, T, H, G, P, s);
 #define SSD_SHAPES(TT)                                                       \
-  SSD_CASE(TT, 64, 128)                                                      \
-  SSD_CASE(TT, 64, 64)                                                       \
-  SSD_CASE(TT, 32, 128)                                                      \
-  SSD_CASE(TT, 32, 32)
+  SSD_CASE(TT, 64, 128, 64)                                                  \
+  SSD_CASE(TT, 128, 128, 64)                                                 \
+  SSD_CASE(TT, 64, 64, 64)                                                   \
+  SSD_CASE(TT, 32, 128, 32)                                                  \
+  SSD_CASE(TT, 32, 32, 32)
   if (bf16) {
     SSD_SHAPES(__nv_bfloat16)
   } else {

@@ -25,9 +25,10 @@ launches = 0
 CHUNK = 128          # the chunk of the plain version ref.ssd_chunked_ref
 KERNEL_CHUNK = 64    # the chunk length the kernel computes with
 # (head dim P, state dim N) pairs the kernel is instantiated for:
-# mamba2-370m's (64, 128), its reduced() (32, 32), and the two that the
-# card tests add.
-SHAPES = ((64, 128), (64, 64), (32, 128), (32, 32))
+# mamba2-370m's (64, 128), Jamba's (128, 128) (the (64, 128) instantiation
+# on two column slices of each head), their reduced() (32, 32), and the two
+# that the card tests add.
+SHAPES = ((64, 128), (128, 128), (64, 64), (32, 128), (32, 32))
 # Input types of x, B and C (converted to f32 exactly on load).
 DTYPES = (torch.float32, torch.bfloat16)
 

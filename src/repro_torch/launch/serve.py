@@ -9,8 +9,11 @@ Random weights from ``--seed``.  ``--quant`` serves with the paper's
 int8/int16/int32 quantized linears (§6.1; SINT through the ``qmatmul``
 kernel); ``--cyclic N`` decodes multipart, N layer segments per token
 (§6.3): with the wave engine, request 0 alone through a
-:class:`~repro_torch.serving.CyclicDecoder`, with ``--engine continuous``
-every slot's step.  Runs on the card unless ``--device cpu``.
+:class:`~repro_torch.serving.CyclicDecoder` (dense, moe, vlm and ssm; the
+others serve through the wave engine, as the reference), with ``--engine
+continuous`` every slot's step.  The vlm and audio families get zero
+``image_emb``/``frames`` extras, one row per slot.  Runs on the card unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import PORTED_ARCH_IDS, get_config
+from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
+from repro_torch.models import vlm
 from repro_torch.models.api import get_model
 from repro_torch.serving import (ContinuousEngine, CyclicDecoder, Engine,
                                  Request)
@@ -31,7 +35,7 @@ from repro_torch.serving import (ContinuousEngine, CyclicDecoder, Engine,
 
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=PORTED_ARCH_IDS, required=True)
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -58,6 +62,16 @@ def main(argv: Optional[list] = None) -> None:
     params = api.init(torch.Generator(device=dev).manual_seed(args.seed),
                       device=dev)
 
+    extras = {}
+    if cfg.family == "vlm":
+        extras["image_emb"] = torch.zeros(
+            (args.batch_slots, cfg.num_image_tokens, vlm.VISION_D),
+            dtype=cfg.dtype, device=dev)
+    elif cfg.family == "audio":
+        extras["frames"] = torch.zeros(
+            (args.batch_slots, cfg.encoder_frames, cfg.d_model),
+            dtype=cfg.dtype, device=dev)
+
     rng = np.random.default_rng(args.seed)
     reqs = [Request(uid=i,
                     prompt=rng.integers(0, cfg.vocab, args.prompt_len),
@@ -65,10 +79,11 @@ def main(argv: Optional[list] = None) -> None:
                     temperature=args.temperature)
             for i in range(args.requests)]
 
-    if args.cyclic and args.engine == "wave":
-        tokens = torch.from_numpy(reqs[0].prompt[None]).to(dev)
-        cache, logits = api.prefill(params, {"tokens": tokens},
-                                    args.cache_len)
+    if (args.cyclic and args.engine == "wave"
+            and cfg.family in ("dense", "moe", "vlm", "ssm")):
+        batch = {"tokens": torch.from_numpy(reqs[0].prompt[None]).to(dev),
+                 **{k: v[:1] for k, v in extras.items()}}
+        cache, logits = api.prefill(params, batch, args.cache_len)
         first = torch.argmax(logits[:, -1], dim=-1)
         cd = CyclicDecoder(cfg, params, n_segments=args.cyclic, batch=1,
                            cache_len=args.cache_len, device=dev)
@@ -90,8 +105,8 @@ def main(argv: Optional[list] = None) -> None:
                                   cyclic_segments=args.cyclic, device=dev)
     else:
         engine = Engine(api, params, batch_slots=args.batch_slots,
-                        cache_len=args.cache_len, seed=args.seed,
-                        device=dev)
+                        cache_len=args.cache_len, extras=extras,
+                        seed=args.seed, device=dev)
     done = engine.serve(reqs)
     for c in done:
         print(f"req {c.uid}: prefill {c.prefill_s * 1e3:.1f}ms, "

@@ -1,4 +1,4 @@
-"""Uniform model API over the ported architecture families
+"""Uniform model API over the architecture families
 (``repro.models.api``'s counterpart).
 
 ``get_model(cfg)`` returns a :class:`ModelAPI` whose functions have the same
@@ -10,15 +10,24 @@ signatures for every family, so the serving engines are family-agnostic:
   decode_multi(params, cache, batch, pos) -> (cache, logits)  pos: (B,)
   cache_specs(batch, cache_len) -> cache tree of ``meta`` tensors
   init_cache(batch, cache_len, device="cuda") -> cache arena
+  batch_specs(kind, batch, seq) -> batch of ``meta`` tensors
+  init_batch(kind, batch, seq, generator, device="cuda") -> random batch
 
 ``decode`` and ``decode_multi`` update the cache arena in place and return
-it.  The port has the ``"dense"`` (transformer), ``"moe"`` and ``"ssm"``
-(mamba2) families; ``hybrid``, ``vlm`` and ``audio`` raise, naming ROADMAP
-§1 item 4b, and ``loss`` waits for the LLM training stack (item 4c).
-``backend`` (``'auto'|'kernel'|'ref'``, or a mapping from kernel name to one
-of them: ``ops.Backend``) goes to every kernel wrapper the model calls, and
-is kept on the API for the engines that call the model's layers themselves
-(``serving.cyclic``).
+it.  The port has all six families: ``dense`` (transformer), ``moe``,
+``ssm`` (mamba2), ``hybrid`` (Jamba), ``vlm`` (LLaVA-NeXT) and ``audio``
+(Whisper); ``loss`` waits for the LLM training stack (ROADMAP §1 item 4c).
+Batch layouts per family, as the reference:
+
+  dense/moe/ssm/hybrid: {tokens (B, S)}
+  vlm:   {tokens (B, S - I), image_emb (B, I, VISION_D)} at prefill
+  audio: {tokens (B, S), frames (B, F, d_model)} at prefill
+
+and ``{tokens (B, 1)}`` at decode (a ``"train"`` batch adds ``labels`` like
+``tokens``).  ``backend`` (``'auto'|'kernel'|'ref'``, or a mapping from
+kernel name to one of them: ``ops.Backend``) goes to every kernel wrapper
+the model calls, and is kept on the API for the engines that call the
+model's layers themselves (``serving.cyclic``).
 """
 
 from __future__ import annotations
@@ -31,11 +40,18 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.ops import Backend
-from repro_torch.models import mamba2, moe, transformer
+from repro_torch.models import hybrid, mamba2, moe, transformer, vlm, whisper
 
 Params = Dict[str, Any]
 Batch = Dict[str, torch.Tensor]
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+# family -> (module with prefill/decode/cache functions, its param init)
+_FAMILIES = {"dense": (transformer, transformer.decoder_init),
+             "moe": (moe, moe.model_init),
+             "ssm": (mamba2, mamba2.model_init),
+             "hybrid": (hybrid, hybrid.model_init),
+             "vlm": (vlm, vlm.model_init),
+             "audio": (whisper, whisper.model_init)}
+PORTED_FAMILIES = tuple(_FAMILIES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,19 +64,61 @@ class ModelAPI:
                            Tuple[Any, torch.Tensor]]
     cache_specs: Callable[[int, int], Any]
     init_cache: Callable[..., Any]
+    batch_specs: Callable[[str, int, int], Batch]
     backend: Backend = "auto"
+
+    def init_batch(self, kind: str, batch: int, seq: int,
+                   generator: torch.Generator, device: Device = "cuda"
+                   ) -> Batch:
+        """A random batch matching :attr:`batch_specs`, drawn from
+        ``generator`` (on its device) and placed on ``device``: token ids
+        uniform in the vocabulary, embeddings standard normal in their
+        dtype."""
+        dev = resolve_device(device)
+        out = {}
+        for name, s in self.batch_specs(kind, batch, seq).items():
+            if s.dtype.is_floating_point:
+                v = torch.randn(s.shape, generator=generator,
+                                device=generator.device).to(s.dtype)
+            else:
+                v = torch.randint(0, self.cfg.vocab, s.shape,
+                                  generator=generator,
+                                  device=generator.device, dtype=s.dtype)
+            out[name] = v.to(dev)
+        return out
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _batch_specs(cfg: ArchConfig) -> Callable[[str, int, int], Batch]:
+    """The family's batch layout at (kind, batch, seq): token ids int64;
+    the vlm's ``image_emb`` takes ``cfg.num_image_tokens`` of ``seq``."""
+    def specs(kind: str, batch: int, seq: int) -> Batch:
+        if kind not in ("train", "prefill"):
+            return {"tokens": _meta((batch, 1), torch.int64)}
+        extra = {}
+        if cfg.family == "vlm":
+            extra["image_emb"] = _meta(
+                (batch, cfg.num_image_tokens, vlm.VISION_D), cfg.dtype)
+            seq = max(seq - cfg.num_image_tokens, 1)
+        elif cfg.family == "audio":
+            extra["frames"] = _meta((batch, cfg.encoder_frames, cfg.d_model),
+                                    cfg.dtype)
+        out = {"tokens": _meta((batch, seq), torch.int64)}
+        if kind == "train":
+            out["labels"] = _meta((batch, seq), torch.int64)
+        return {**out, **extra}
+    return specs
 
 
 def get_model(cfg: ArchConfig, *, backend: Backend = "auto") -> ModelAPI:
     fam = cfg.family
-    if fam not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {fam!r} ({cfg.name}) is not ported: the port has "
-            f"{PORTED_FAMILIES}; hybrid, vlm and audio are ROADMAP §1 "
-            "item 4b")
-    mod, model_init = {"dense": (transformer, transformer.decoder_init),
-                       "moe": (moe, moe.model_init),
-                       "ssm": (mamba2, mamba2.model_init)}[fam]
+    if fam not in _FAMILIES:
+        raise ValueError(f"unknown family {fam!r} ({cfg.name}): the port "
+                         f"has {PORTED_FAMILIES}")
+    mod, model_init = _FAMILIES[fam]
 
     def init(generator: torch.Generator, device: Device = "cuda") -> Params:
         """Random params from ``generator`` (draws on its device), on
@@ -71,13 +129,23 @@ def get_model(cfg: ArchConfig, *, backend: Backend = "auto") -> ModelAPI:
         return mod.init_cache(cfg, batch, cache_len,
                               device=resolve_device(device))
 
+    if fam == "vlm":
+        def prefill(p, b, cl):
+            return vlm.prefill(p, cfg, b, cl, backend=backend)
+    elif fam == "audio":
+        def prefill(p, b, cl):
+            return whisper.prefill(p, cfg, b["frames"], b["tokens"], cl,
+                                   backend=backend)
+    else:
+        def prefill(p, b, cl):
+            return mod.prefill(p, cfg, b["tokens"], cl, backend=backend)
+
     return ModelAPI(
-        cfg=cfg, init=init,
-        prefill=lambda p, b, cl: mod.prefill(p, cfg, b["tokens"], cl,
-                                             backend=backend),
+        cfg=cfg, init=init, prefill=prefill,
         decode=lambda p, c, b, pos: mod.decode_step(
             p, cfg, c, b["tokens"], pos, backend=backend),
         decode_multi=lambda p, c, b, pos: mod.decode_step_multi(
             p, cfg, c, b["tokens"], pos, backend=backend),
         cache_specs=lambda bsz, cl: mod.cache_spec(cfg, bsz, cl),
-        init_cache=init_cache, backend=backend)
+        init_cache=init_cache, batch_specs=_batch_specs(cfg),
+        backend=backend)

@@ -145,6 +145,23 @@ def stack_layers(init_one: Callable[[], Params], n: int,
     return out
 
 
+def stacked_spec(spec: Params, lead: Tuple[int, ...]) -> Params:
+    """A tree of ``meta`` stand-ins with ``lead`` prepended to every shape
+    (per-layer state stacked over layers)."""
+    if isinstance(spec, dict):
+        return {k: stacked_spec(v, lead) for k, v in spec.items()}
+    return torch.empty(lead + tuple(spec.shape), dtype=spec.dtype,
+                       device="meta")
+
+
+def zeros_like_spec(spec: Params, device: torch.device) -> Params:
+    """Zeros on ``device`` shaped as a tree of ``meta`` stand-ins (the cache
+    arenas of the ``cache_spec`` functions)."""
+    if isinstance(spec, dict):
+        return {k: zeros_like_spec(v, device) for k, v in spec.items()}
+    return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+
+
 def layer_slice(blocks: Params, layer: int) -> Params:
     """Views of one layer's slice of stacked block params (or caches)."""
     if isinstance(blocks, dict):
@@ -279,7 +296,12 @@ def attn_prefill(p: Params, a: AttnConfig, x: torch.Tensor,
                  window_override: Optional[int] = None,
                  backend: kops.Backend = "auto"
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Prefill: the output and (k, v), zero-padded to ``cache_len``."""
+    """Prefill: the output and (k, v), zero-padded to ``cache_len``, which
+    must hold the sequence (``F.pad`` would crop it silently where the
+    reference's ``jnp.pad`` raises)."""
+    if cache_len < x.shape[1]:
+        raise ValueError(f"a cache of {cache_len} positions cannot hold a "
+                         f"prefill of {x.shape[1]}")
     q, k, v = attn_qkv(p, a, x, positions, backend=backend)
     mask = gqa_scores_mask(positions, positions, causal=True,
                            window=_window(a, window_override))

@@ -153,6 +153,18 @@ def _mamba_forward_state(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
             {"conv": conv_state, "ssm": ssm_state})
 
 
+def mamba_cache_spec(cfg: ArchConfig, batch: int) -> Dict[str, torch.Tensor]:
+    """Shape and dtype stand-ins (``meta`` tensors) of one mixer's decode
+    state: conv (B, K - 1, C) in ``cfg.dtype`` and ssm (B, H, P, N) f32."""
+    d_inner, h, g, n, conv_dim, _ = _dims(cfg)
+    return {
+        "conv": torch.empty((batch, cfg.conv_kernel - 1, conv_dim),
+                            dtype=cfg.dtype, device="meta"),
+        "ssm": torch.empty((batch, h, cfg.ssm_headdim, n),
+                           dtype=torch.float32, device="meta"),
+    }
+
+
 def mamba_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor], *,
                  backend: kops.Backend = "auto"
@@ -225,22 +237,15 @@ def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
 def cache_spec(cfg: ArchConfig, batch: int, cache_len: int
                ) -> Dict[str, torch.Tensor]:
     """Shape and dtype stand-ins (tensors on the ``meta`` device) of the
-    decode state arena: conv (L, B, K - 1, C) in ``cfg.dtype`` and ssm
-    (L, B, H, P, N) f32.  O(1) in ``cache_len``."""
-    d_inner, h, g, n, conv_dim, _ = _dims(cfg)
-    return {
-        "conv": torch.empty((cfg.n_layers, batch, cfg.conv_kernel - 1,
-                             conv_dim), dtype=cfg.dtype, device="meta"),
-        "ssm": torch.empty((cfg.n_layers, batch, h, cfg.ssm_headdim, n),
-                           dtype=torch.float32, device="meta"),
-    }
+    decode state arena: :func:`mamba_cache_spec` stacked over layers, conv
+    (L, B, K - 1, C) and ssm (L, B, H, P, N).  O(1) in ``cache_len``."""
+    return cm.stacked_spec(mamba_cache_spec(cfg, batch), (cfg.n_layers,))
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: torch.device) -> Dict[str, torch.Tensor]:
     """The decode state arena of :func:`cache_spec`, zeros, on ``device``."""
-    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-            for k, s in cache_spec(cfg, batch, cache_len).items()}
+    return cm.zeros_like_spec(cache_spec(cfg, batch, cache_len), device)
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

@@ -140,9 +140,12 @@ def decoder_init(generator: torch.Generator, cfg: ArchConfig, *,
             "final_norm": cm.rmsnorm_init(cfg.d_model, device)}
 
 
-def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor
-           ) -> torch.Tensor:
-    return cm.embed(params["embed"], tokens).to(cfg.dtype)
+def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
+           prefix_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    x = cm.embed(params["embed"], tokens).to(cfg.dtype)
+    if prefix_embed is None:
+        return x
+    return torch.cat([prefix_embed.to(cfg.dtype), x], dim=1)
 
 
 def decoder_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -159,9 +162,12 @@ def decoder_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
 def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                    ffn_apply: Optional[FfnApply] = None, *,
+                   prefix_embed: Optional[torch.Tensor] = None,
                    backend: kops.Backend = "auto") -> torch.Tensor:
-    """Teacher-forced logits (B, S, vocab) f32."""
-    x = _embed(params, cfg, tokens)
+    """Teacher-forced logits (B, S, vocab) f32.  ``prefix_embed``
+    (B, P, D), when given, is prepended to the token embeddings (the VLM's
+    projected image tokens) and its positions' logits are returned too."""
+    x = _embed(params, cfg, tokens, prefix_embed)
     positions = torch.arange(x.shape[1], device=x.device)
     h = decoder_hidden(params, cfg, x, positions, ffn_apply, backend=backend)
     return cm.unembed(params["embed"], h)
@@ -191,8 +197,7 @@ def cache_spec(cfg: ArchConfig, batch: int, cache_len: int
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, *,
                device: torch.device) -> Dict[str, torch.Tensor]:
     """The KV arena, zeros, on ``device``."""
-    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-            for k, s in cache_spec(cfg, batch, cache_len).items()}
+    return cm.zeros_like_spec(cache_spec(cfg, batch, cache_len), device)
 
 
 def _kv_parts(cfg: ArchConfig, cache: Dict[str, torch.Tensor], layer: int
@@ -204,13 +209,16 @@ def _kv_parts(cfg: ArchConfig, cache: Dict[str, torch.Tensor], layer: int
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             cache_len: int, ffn_apply: Optional[FfnApply] = None, *,
+            prefix_embed: Optional[torch.Tensor] = None,
             backend: kops.Backend = "auto"
             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The prompt's KV arena at ``cache_len`` (zero-padded past the prompt;
     under kv_quant the padded K/V quantized, as the reference) and the
-    logits of its last position (B, 1, vocab)."""
+    logits of its last position (B, 1, vocab).  ``prefix_embed`` (B, P, D)
+    is prepended to the prompt's embeddings, as in :func:`forward_logits`:
+    the arena then holds P + S positions."""
     ffn_apply = ffn_apply or _dense_ffn(cfg, backend)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, prefix_embed)
     positions = torch.arange(x.shape[1], device=x.device)
     cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
     for layer in range(cfg.n_layers):

@@ -15,10 +15,10 @@ Admission writes a new request's prompt into its slot of the arena:
   length.  Pad positions land beyond the slot's live region and each decode
   step overwrites its own position before attending to it, so pads are
   never observed.
-* ssm (recurrent state absorbs pads) and moe (pad tokens would compete for
-  expert capacity) prefill at the exact prompt length instead.  The moe
-  dispatch needs ``len(prompt) - 1`` to be at most ``cfg.moe_group`` or a
-  multiple of it.
+* ssm (recurrent state absorbs pads), moe (pad tokens would compete for
+  expert capacity) and hybrid (both) prefill at the exact prompt length
+  instead.  The moe and hybrid dispatch needs ``len(prompt) - 1`` to be at
+  most ``cfg.moe_group`` or a multiple of it.
 
 The prefilled single-request cache is copied in place into the slot along
 the slot axis, which is found generically by diffing ``cache_specs`` at two
@@ -114,8 +114,9 @@ class ContinuousEngine:
         if api.cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
                 "ContinuousEngine serves token-only families; vlm/audio "
-                "admission needs per-request extras (image_emb/frames), "
-                "which wait for those families (ROADMAP §1 item 4b).")
+                "admission needs per-request extras (image_emb/frames): "
+                "use the wave Engine with `extras` for those, as the "
+                "reference.")
         if cyclic_segments > 0 and api.cfg.kv_quant:
             raise NotImplementedError(
                 "cyclic_segments does not compose with kv_quant: the "

@@ -12,8 +12,9 @@ as in the reference.  A cycle ends when its segment's work has finished on
 the device (the decoder synchronises the card after each segment), so a
 cycle time is the segment's real cost.
 
-Supported families: ``dense`` and ``moe`` (transformer block stacks) and
-``ssm``.  ``vlm`` waits for its family (ROADMAP §1 item 4b).
+Supported families: ``dense``, ``moe`` and ``vlm`` (transformer block
+stacks; the vlm's image prefix is in the arena its prefill filled) and
+``ssm``; ``hybrid`` and ``audio`` raise, as the reference.
 """
 
 from __future__ import annotations
@@ -48,11 +49,10 @@ class CyclicDecoder:
     def __init__(self, cfg: ArchConfig, params: Any, *, n_segments: int,
                  batch: int, cache_len: int, backend: kops.Backend = "auto",
                  device: Device = "cuda"):
-        if cfg.family not in ("dense", "moe", "ssm"):
+        if cfg.family not in ("dense", "moe", "vlm", "ssm"):
             raise NotImplementedError(
-                f"CyclicDecoder serves the dense, moe and ssm families, not "
-                f"{cfg.family!r} (vlm waits for its family: ROADMAP §1 "
-                "item 4b)")
+                f"CyclicDecoder serves the dense, moe, vlm and ssm families, "
+                f"not {cfg.family!r}")
         if cfg.kv_quant:
             raise NotImplementedError(
                 "CyclicDecoder does not compose with kv_quant: its segment "

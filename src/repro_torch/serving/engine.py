@@ -5,15 +5,19 @@ The ICSML discipline applied to serving, as in the reference: the decode
 state arena is **preallocated** at construction (``api.init_cache``) and
 updated in place step after step (the analogue of the reference's donated
 cache); requests are admitted in waves, and all slots share the position
-counter, as the PLC scan cycle shares one clock.  The engine runs on the
-card unless ``device="cpu"`` is passed.
+counter, as the PLC scan cycle shares one clock.  ``extras`` (the vlm's
+``image_emb``, the audio family's ``frames``: one row per slot) are merged
+into every prefill and decode batch, as the reference.  Decode positions
+count from the text prompt's length, as the reference's engine counts them:
+a vlm's image prefix is not added to them.  The engine runs on the card
+unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,6 +66,15 @@ def sample_batched(logits: torch.Tensor, temperatures: torch.Tensor,
     return torch.where(hot, sampled, greedy)
 
 
+def _copy_into(dst: Any, src: Any) -> None:
+    """Copy a (nested) cache tree into the arena of the same layout."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
 def _truncate_eos(tokens: np.ndarray, eos: Optional[int]) -> np.ndarray:
     if eos is None:
         return tokens
@@ -73,12 +86,16 @@ class Engine:
     """Wave-batched serving over a :class:`ModelAPI`."""
 
     def __init__(self, api: ModelAPI, params: Any, *, batch_slots: int,
-                 cache_len: int, seed: int = 0, device: Device = "cuda"):
+                 cache_len: int,
+                 extras: Optional[Dict[str, torch.Tensor]] = None,
+                 seed: int = 0, device: Device = "cuda"):
         self.device = resolve_device(device)
         self.api = api
         self.params = params
         self.batch_slots = batch_slots
         self.cache_len = cache_len
+        self.extras = {k: v.to(self.device)
+                       for k, v in (extras or {}).items()}
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         # The static state arena, written in place by every decode step.
@@ -108,10 +125,10 @@ class Engine:
         temps_t = torch.from_numpy(temps).to(self.device)
 
         t0 = time.perf_counter()
-        batch = {"tokens": torch.from_numpy(prompts).to(self.device)}
+        batch = {"tokens": torch.from_numpy(prompts).to(self.device),
+                 **self.extras}
         states, logits = self.api.prefill(self.params, batch, self.cache_len)
-        for k, v in states.items():
-            self.cache[k].copy_(v)
+        _copy_into(self.cache, states)
         self.last_prefill_logits = logits[:, -1]
         cur = sample_batched(logits[:, -1], temps_t, self._generator)
         out = np.zeros((b, max_new), np.int64)
@@ -121,8 +138,8 @@ class Engine:
         t1 = time.perf_counter()
         for step in range(1, max_new):
             self.cache, logits = self.api.decode(
-                self.params, self.cache, {"tokens": cur[:, None]},
-                plen + step - 1)
+                self.params, self.cache,
+                {"tokens": cur[:, None], **self.extras}, plen + step - 1)
             cur = sample_batched(logits[:, -1], temps_t, self._generator)
             out[:, step] = cur.cpu().numpy()    # waits for the step
         t_decode = time.perf_counter() - t1

@@ -266,9 +266,10 @@ def test_unsupported_combinations_rejected():
     with pytest.raises(NotImplementedError, match="kv_quant"):
         CyclicDecoder(kvq.cfg, None, n_segments=2, batch=1, cache_len=8,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        CyclicDecoder(tapi.cfg.with_(family="vlm"), None, n_segments=2,
-                      batch=1, cache_len=8, device="cpu")
+    for family in ("hybrid", "audio"):
+        with pytest.raises(NotImplementedError, match=family):
+            CyclicDecoder(tapi.cfg.with_(family=family), None, n_segments=2,
+                          batch=1, cache_len=8, device="cpu")
     eng = ContinuousEngine(tapi, tp, batch_slots=1, cache_len=8,
                            device="cpu")
     with pytest.raises(ValueError, match="must fit the cache"):

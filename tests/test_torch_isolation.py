@@ -138,3 +138,32 @@ def test_dense_and_moe_entry_points_refuse_to_fall_back_to_cpu(arch,
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--arch", arch, "--reduced"])
     assert api.init_cache(2, 8, device="cpu")["k"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ("jamba_1_5_large_398b", "llava_next_34b",
+                                  "whisper_base"))
+def test_family_entry_points_refuse_to_fall_back_to_cpu(arch, monkeypatch):
+    """The hybrid, vlm and audio families: init, init_cache, init_batch,
+    the wave Engine with its extras and the launcher raise without CUDA;
+    the explicit CPU request is honoured."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    api = get_model(get_config(arch).reduced().with_(dtype=torch.float32))
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init(gen)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_cache(2, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.init_batch("prefill", 2, 8, gen)
+    params = api.init(gen, device="cpu")
+    extras = {k: v for k, v in api.init_batch("prefill", 2, 8, gen,
+                                              device="cpu").items()
+              if k != "tokens"}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(api, params, batch_slots=2, cache_len=32, extras=extras)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--arch", arch, "--reduced"])
+    engine = Engine(api, params, batch_slots=2, cache_len=32, extras=extras,
+                    device="cpu")
+    assert all(v.device.type == "cpu" for v in engine.extras.values())
+    assert engine.cache["k"].device.type == "cpu"

@@ -38,7 +38,9 @@ from repro_torch.core import layers as TL
 from repro_torch.core import prune, quantize, sequential
 from repro_torch.kernels import (fused_mlp, ops, qmatmul, ref, sparse_matmul,
                                  ssd_scan)
+from repro_torch.models import mamba2
 from repro_torch.models.api import get_model
+from repro_torch.models.vlm import VISION_D
 from repro_torch.serving import (Engine, GroupedStreamEngine, ModelGroup,
                                  Request, StreamEngine)
 from repro_torch.sim import (ClassifierHead, ForecastHead, MarginHead,
@@ -278,6 +280,32 @@ def test_qmatmul_qwen3_widths(k, n, m):
     check("SINT", got, ref.qmatmul_ref(xq, wq, scale, bias))
     check("SINT", qmatmul.qmatmul(xq, wq, scale),
           ref.qmatmul_ref(xq, wq, scale))
+
+
+# The SINT projections (K x N) of the last three families at full width:
+# Jamba's Mamba in_proj and out_proj, attention (wq/wo, wk/wv) and MLP (up,
+# down); LLaVA-NeXT-34b's attention and MLP; whisper-base's attention and
+# MLP.
+FAMILY_SHAPES = ((8192, 34944), (16384, 8192), (8192, 8192), (8192, 1024),
+                 (8192, 24576), (24576, 8192), (7168, 7168), (7168, 1024),
+                 (7168, 20480), (20480, 7168), (512, 512), (512, 2048),
+                 (2048, 512))
+
+
+@pytest.mark.parametrize("m", (8, 1024))
+@pytest.mark.parametrize("k,n", FAMILY_SHAPES)
+def test_qmatmul_family_widths(k, n, m):
+    """torch.equal to the plain version at the hybrid's, the VLM's and
+    Whisper's projection shapes, on both sides of the path switch."""
+    g = torch.Generator(device="cuda").manual_seed(k + n + m)
+    xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    scale = torch.rand(n, generator=g, device="cuda") * 1e-5
+    bias = torch.randn(n, generator=g, device="cuda")
+    check("SINT", qmatmul.qmatmul(xq, wq, scale, bias),
+          ref.qmatmul_ref(xq, wq, scale, bias))
 
 
 def test_qmatmul_takes_int8_only():
@@ -550,6 +578,8 @@ SSD_CARD_SHAPES = [
     (2, 300, 16, 32, 32, 2),        # the reduced widths, two groups
     (3, 200, 8, 64, 64, 4),
     (2, 129, 4, 32, 128, 1),
+    (4, 1024, 128, 128, 128, 8),    # Jamba's Mamba layers in chip_smoke (A)
+    (1, 1000, 16, 128, 128, 8),     # P 128 with a ragged last chunk
 ]
 
 
@@ -606,7 +636,8 @@ def conv_output(bsz, t, h, p, n, g, seed):
 
 
 @pytest.mark.parametrize("shape", [(8, 1000, 32, 64, 128, 1),
-                                   (2, 300, 16, 32, 32, 2)], ids=ssd_ids)
+                                   (2, 300, 16, 32, 32, 2),
+                                   (2, 300, 32, 128, 128, 8)], ids=ssd_ids)
 def test_ssd_scan_reads_bf16_views_in_place(shape):
     """bf16 strided views give the bits of the same call on f32 contiguous
     copies (bf16 is exact in f32, and every op after the load is explicit)
@@ -696,6 +727,64 @@ def test_qwen3_width_sint_engine_equals_plain_qmatmul():
     assert torch.isfinite(engine.last_prefill_logits).all()
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+def test_jamba_width_mamba_mixer_equals_plain_qmatmul():
+    """One Jamba Mamba mixer at full width (d 8192, 128 SSD heads of P 128,
+    N 128, G 8), bf16 SINT, B 2 x T 200: the output and both states equal
+    to the same mixer with qmatmul's plain version (the ssd_scan kernel in
+    both), two qmatmul and one ssd_scan launch per call."""
+    cfg = get_config("jamba_1_5_large_398b").with_(quant="SINT")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = mamba2.mamba_init(g, cfg)
+    x = (torch.randn((2, 200, cfg.d_model), generator=g, device="cuda")
+         ).to(torch.bfloat16)
+    before = (qmatmul.launches, ssd_scan.launches)
+    got, got_state = mamba2._mamba_forward_state(p, cfg, x)
+    assert (qmatmul.launches - before[0], ssd_scan.launches - before[1]) \
+        == (2, 1)
+    want, want_state = mamba2._mamba_forward_state(
+        p, cfg, x, backend={"qmatmul": "ref"})
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, want)
+    for k in ("conv", "ssm"):
+        assert torch.equal(got_state[k], want_state[k])
+
+
+def test_llava_width_two_layers_equal_plain_qmatmul():
+    """Two layers of llava-next-34b at full width (d 7168, 56 q and 8 kv
+    heads of 128, d_ff 20480, vocab 64000), bf16 SINT, with a 64-token
+    image prefix through the wave engine's extras: seven qmatmul launches
+    per layer per forward, tokens and prefill logits equal to the same
+    engine with qmatmul's plain version, and the prefix moves the
+    logits."""
+    cfg = get_config("llava_next_34b").with_(n_layers=2, quant="SINT",
+                                             num_image_tokens=64)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = get_model(cfg).init(gen)
+    image = torch.randn((2, 64, VISION_D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, 90 + 20 * i),
+                    max_new_tokens=4) for i in range(2)]
+    before = qmatmul.launches
+    engine = Engine(get_model(cfg), params, batch_slots=2, cache_len=256,
+                    extras={"image_emb": image})
+    got = engine.serve(reqs)
+    assert qmatmul.launches - before == 7 * cfg.n_layers * 4
+    plain = Engine(get_model(cfg, backend={"qmatmul": "ref"}), params,
+                   batch_slots=2, cache_len=256, extras={"image_emb": image})
+    want = plain.serve(reqs)
+    assert torch.equal(engine.last_prefill_logits, plain.last_prefill_logits)
+    assert torch.isfinite(engine.last_prefill_logits).all()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+    other = Engine(get_model(cfg), params, batch_slots=2, cache_len=256,
+                   extras={"image_emb": image + 1})
+    other.serve(reqs)
+    assert not torch.equal(other.last_prefill_logits,
+                           engine.last_prefill_logits)
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ from repro.models import moe as jmoe
 from repro.models import transformer as jtf
 from repro.models.api import get_model as jget_model
 from repro_torch.bridge import params_from_numpy
-from repro_torch.configs.base import PORTED_ARCH_IDS, get_config
+from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.models import common as cm
 from repro_torch.models import moe
 from repro_torch.models import transformer as tf
@@ -106,7 +106,7 @@ def test_config_matches_reference(arch, reduced):
     assert jfields.pop("dtype") == jnp.bfloat16
     assert tfields.pop("dtype") == torch.bfloat16
     assert tfields == jfields
-    assert arch in PORTED_ARCH_IDS
+    assert arch in ARCH_IDS
 
 
 def leaves(tree, path=()):

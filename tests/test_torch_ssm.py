@@ -80,16 +80,19 @@ def test_config_matches_reference(reduced):
     assert ARCH_IDS == JARCH_IDS
 
 
-def test_unported_families_raise():
-    """The families still to port (hybrid, vlm, audio) raise, naming their
-    ROADMAP item, from get_config and from get_model."""
-    for arch in ("jamba_1_5_large_398b", "llava_next_34b", "whisper_base"):
-        with pytest.raises(ValueError, match="ROADMAP §1 item 4b"):
-            get_config(arch)
-    for family in ("hybrid", "vlm", "audio"):
-        cfg = get_config("mamba2_370m").with_(family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4b"):
-            get_model(cfg)
+def test_every_family_is_ported():
+    """get_config and get_model serve every architecture of ARCH_IDS (all
+    six families); an unknown id or family still raises."""
+    families = set()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        assert get_model(cfg).cfg is cfg
+        families.add(cfg.family)
+    assert families == {"dense", "moe", "ssm", "hybrid", "vlm", "audio"}
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("gpt_oss_999b")
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(get_config("mamba2_370m").with_(family="retnet"))
 
 
 # ---------------------------------------------------------------------------
