@@ -264,6 +264,42 @@ stdout; a failing phase raises and the script exits non-zero:
              (of the largest logit) of the CPU, tokens equal; and
              ``python -m repro_torch.launch.serve --arch whisper_base`` and
              ``--arch llava_next_34b --reduced`` on the card.
+14. llm_train — the LLM training stack (launch.steps: eager autograd,
+             AdamW with f32 moments, every layer rematerialised), random
+             weights from a seed, data from data.SyntheticLM; no kernel may
+             launch inside a train step (the gradient takes the plain
+             versions, launch.steps.GRAD_BACKEND).  (G) qwen3-8b's widths
+             (d 4096, 32/8 heads of 128, d_ff 12288, vocab 151936, tied
+             embedding) cut to 8 layers (2.17B params; all 36 would be
+             ~91 GB with their gradients and moments), bf16, 20 steps of
+             8 x 1024 tokens at lr 3e-4, warmup 5: losses and gradient
+             norms finite, the last 5 losses' mean below the first 5's,
+             every float leaf moved; step ms, tokens/s, peak GB, and one
+             more step under torch.profiler.  (H) one step of each
+             family's reduced f32 config (qwen3, granite-moe, mamba2,
+             Jamba, LLaVA-NeXT, Whisper), 2 x 64 tokens, card against the
+             CPU from the same params and batch (TF32 off): loss and
+             gradient norm within 1e-4 relative, every gradient leaf
+             within 1e-4 of its largest value, the updated params within
+             1e-4 of the largest param.
+             (I) mamba2-370m uncut (48 layers, d 1024, 32 SSD heads of
+             P 64, N 128, vocab 50280), bf16, 10 steps of 8 x 1024 tokens
+             through the chunked SSD's gradient; the loss without a
+             gradient on the params upcast to f32 through ssd_scan (48
+             launches) within 1e-4 relative of the chunked plain SSD's; a
+             checkpoint saved and restored (every leaf torch.equal), then 2
+             more steps from the live state and from the restored one under
+             torch.use_deterministic_algorithms: equal losses; the restored
+             model in f32 through the wave Engine at (k)'s shape (8 x 1024
+             prompt tokens, 32 new): 48 ssd_scan launches, greedy tokens
+             equal to backend={"ssd_scan": "ref"}'s, prefill logits within
+             1e-3.  (J) examples/train_llm.py's default model whole (12
+             layers, d 512, 8/4 heads, d_ff 1408, vocab 32768, ~55M
+             params), bf16, 300 steps of 8 x 256 tokens at lr 6e-4, warmup
+             50: the last 5 losses' mean at least 0.3 below the first 5's.
+             (K) ``python -m repro_torch.launch.train --arch mamba2_370m
+             --reduced --steps 5 --ckpt-dir <tmp> --ckpt-every 5`` exits 0
+             and leaves LATEST = 5.
 
 Then the wall seconds of each phase and in all, and each trainer's wall
 seconds (``{"phase": "seconds"}``),
@@ -283,6 +319,10 @@ import time
 
 import numpy as np
 import torch
+
+# cuBLAS's deterministic workspace, read when the first handle is made: run
+# (I)'s resumed steps run under torch.use_deterministic_algorithms.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -379,6 +419,26 @@ JCONT_SLOTS, JCONT_REQUESTS, JCONT_PROMPTS, JCONT_NEW = 4, 12, (64, 512), \
 LLAVA_BATCH, LLAVA_TEXT, LLAVA_NEW = 2, 512, 16
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW, WHISPER_CACHE = 8, 64, 32, 96
 WHISPER_CPU_STEPS = 8
+# Phase 14: the LLM training stack (module docstring).  (G) qwen3-8b's
+# widths cut to LT_QWEN_LAYERS, LT_QWEN_STEPS steps of LT_BATCH x LT_SEQ
+# tokens; (H) one step per family in LT_FAMILIES, reduced, f32, card
+# against the CPU; (I) mamba2-370m uncut, LT_MAMBA_STEPS steps, then
+# LT_RESUME_STEPS from a checkpoint; (J) examples/train_llm.py's default
+# model (LT_SMALL) and schedule; (K) the launcher.
+LT_BATCH, LT_SEQ = 8, 1024
+LT_QWEN_LAYERS, LT_QWEN_STEPS, LT_QWEN_LR, LT_QWEN_WARMUP = 8, 20, 3e-4, 5
+LT_FAMILIES = ("qwen3_8b", "granite_moe_1b_a400m", "mamba2_370m",
+               "jamba_1_5_large_398b", "llava_next_34b", "whisper_base")
+LT_CPU_BATCH, LT_CPU_SEQ = 2, 64
+LT_MAMBA_STEPS, LT_RESUME_STEPS, LT_MAMBA_LR, LT_MAMBA_WARMUP = 10, 2, \
+    3e-4, 2
+LT_SMALL = dict(n_layers=12, d_model=512, n_heads=8, n_kv_heads=4,
+                d_ff=1408, vocab=32768)
+LT_SMALL_STEPS, LT_SMALL_SEQ, LT_SMALL_LR, LT_SMALL_WARMUP = 300, 256, \
+    6e-4, 50
+# The drop of tests/test_system.py::test_loss_decreases: the mean of the
+# last 5 losses at least this far below the first 5's.
+LT_SMALL_MARGIN = 0.3
 
 
 def emit(obj):
@@ -1809,6 +1869,389 @@ def families_phase(dev, smi):
     return launches
 
 
+def llm_train_phase(dev, smi):
+    """Phase 14 (module docstring): runs (G)-(K), the LLM training stack on
+    the card.  Returns the launch counts of the runs."""
+    import gc
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import latest_step, restore, save
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import (loss_and_grads, make_optimizer,
+                                          make_train_step)
+    from repro_torch.models.api import get_model
+    from repro_torch.optim.adamw import leaves, tree_map
+    from repro_torch.serving import Engine, Request
+
+    launches = dict.fromkeys(COUNTED, 0)
+    gen = torch.Generator(device=dev)
+    none = expect()
+
+    def counted(fn):
+        return counted_into(launches, fn)
+
+    def emit_row(run, row):
+        emit({"phase": "llm_train", "run": run, "nvidia_smi": smi, **row})
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def stream(cfg, seq, batch, seed):
+        return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                      global_batch=batch,
+                                      seed=seed)).batches()
+
+    def on_card(host):
+        return {k: torch.from_numpy(v).to(dev, dtype=torch.int64)
+                for k, v in host.items()}
+
+    def leaf_sums(params):
+        return [float(p.double().sum()) for p in leaves(params)
+                if p.is_floating_point()]
+
+    def run_steps(step, params, opt, batches):
+        """Train steps over ``batches`` (on the card): (params, opt,
+        losses, gradient norms, wall seconds a step, each ending in the
+        host's read of the loss)."""
+        losses, norms, secs = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+            norms.append(float(m["grad_norm"]))
+        if not np.isfinite(losses + norms).all():
+            raise AssertionError(f"non-finite loss or gradient norm: "
+                                 f"{losses} {norms}")
+        return params, opt, losses, norms, secs
+
+    def learned(run, losses, margin):
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if not last < first - margin:
+            raise AssertionError(f"{run}: mean loss {first} -> {last}, "
+                                 f"not {margin} lower: {losses}")
+        return first, last
+
+    def step_row(secs, tokens):
+        steady = secs[1:] or secs
+        ms = float(np.median(steady)) * 1e3
+        return {"first_step_ms": secs[0] * 1e3, "step_ms_median": ms,
+                "step_ms": [s * 1e3 for s in secs],
+                "tokens_per_s": tokens / ms * 1e3}
+
+    # -- (G) qwen3-8b's widths, depth cut, bf16, remat per layer -----------
+    fresh()
+    full = get_config(QWEN_ARCH)
+    gcfg = full.with_(n_layers=LT_QWEN_LAYERS)
+    gen.manual_seed(71)
+    t0 = time.perf_counter()
+    api = get_model(gcfg)
+    params = api.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+    opt_init, opt_update = make_optimizer(LT_QWEN_LR, warmup=LT_QWEN_WARMUP,
+                                          steps=LT_QWEN_STEPS)
+    opt = opt_init(params)
+    step = make_train_step(api, opt_update)
+    data = stream(gcfg, LT_SEQ, LT_BATCH, 0)
+    batches = [on_card(next(data)) for _ in range(LT_QWEN_STEPS + 1)]
+    before = leaf_sums(params)
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt, losses, norms, secs), counts = counted(
+        lambda: run_steps(step, params, opt, batches[:LT_QWEN_STEPS]))
+    check_counts("G", counts, none)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = sum(a != b for a, b in zip(before, leaf_sums(params)))
+    if moved != len(before):
+        raise AssertionError(f"G: {len(before) - moved} of {len(before)} "
+                             f"float leaves did not move")
+    first, last = learned("G", losses, 0.0)
+    # One more step under torch.profiler: where a step's time goes.
+    timing = {}
+
+    def one_step():
+        t1 = time.perf_counter()
+        step(params, opt, batches[-1])
+        torch.cuda.synchronize()
+        timing["wall"] = time.perf_counter() - t1
+
+    events = device_events(one_step)
+    by_name = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy = sum(by_name.values())
+    emit_row("G_qwen3_8b_widths_train", {
+        "model": gcfg.name, "dtype": "bfloat16", "remat": gcfg.remat,
+        "layers": gcfg.n_layers, "d_model": gcfg.d_model,
+        "heads": [gcfg.n_heads, gcfg.n_kv_heads, gcfg.d_head],
+        "d_ff": gcfg.d_ff, "vocab": gcfg.vocab,
+        "cuts": {"n_layers": [full.n_layers, gcfg.n_layers,
+                              "36 layers are ~7.6B params, ~91 GB at 12 "
+                              "bytes each (bf16 param and gradient, two "
+                              "f32 moments) before activations"]},
+        "params": n_params, "param_gb": nbytes(*leaves(params)) / 1e9,
+        "batch": LT_BATCH, "seq": LT_SEQ, "steps": LT_QWEN_STEPS,
+        "lr": LT_QWEN_LR, "warmup": LT_QWEN_WARMUP, "init_s": init_s,
+        "peak_mem_gb": peak, "losses": losses, "grad_norms": norms,
+        "mean_loss_first5": first, "mean_loss_last5": last,
+        "leaves_moved": moved, "launches": counts,
+        **step_row(secs, LT_BATCH * LT_SEQ)})
+    emit({"phase": "profile", "run": "G_one_train_step", "nvidia_smi": smi,
+          "wall_ms": timing["wall"] * 1e3, "device_busy_ms": busy / 1e3,
+          "device_busy_share": busy / 1e6 / timing["wall"],
+          "device_events": len(events),
+          "top_device_us": sorted(by_name.items(),
+                                  key=lambda kv: -kv[1])[:15]})
+    del params, opt, step, batches, api
+
+    # -- (H) one train step per family, card against the CPU --------------
+    fresh()
+    for arch in LT_FAMILIES:
+        cfg = get_config(arch).reduced().with_(dtype=torch.float32)
+        api = get_model(cfg)
+        cpu_gen = torch.Generator().manual_seed(73)
+        cpu_params = api.init(cpu_gen, device="cpu")
+        cpu_batch = api.init_batch("train", LT_CPU_BATCH, LT_CPU_SEQ,
+                                   cpu_gen, device="cpu")
+        card_params = tree_to(cpu_params, dev)
+        card_batch = {k: v.to(dev) for k, v in cpu_batch.items()}
+        opt_init, opt_update = make_optimizer()
+        step = make_train_step(api, opt_update)
+
+        def card_step():
+            grads = loss_and_grads(api, card_params, card_batch)[1]
+            return grads, step(card_params, opt_init(card_params),
+                               card_batch)
+
+        (card_grads, (card_params, _, card_m)), counts = counted(card_step)
+        check_counts(f"H {arch}", counts, none)
+        cpu_grads = loss_and_grads(api, cpu_params, cpu_batch)[1]
+        cpu_params, _, cpu_m = step(cpu_params, opt_init(cpu_params),
+                                    cpu_batch)
+        errs = {k: abs(float(card_m[k]) - float(cpu_m[k]))
+                / abs(float(cpu_m[k])) for k in ("loss", "grad_norm")}
+        # Each gradient leaf against its own largest value; the updated
+        # params against the largest param (phase 11's measure): AdamW's
+        # first step moves every element of a leaf by about the learning
+        # rate whatever the size of its gradient, so a leaf that starts at
+        # zero (a bias) holds only +-lr, whose signs follow the last bits
+        # of the gradients near zero.
+        errs["grads"] = max(
+            float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(leaves(card_grads), leaves(cpu_grads)))
+        largest = max(float(b.abs().max()) for b in leaves(cpu_params))
+        errs["params"] = max(float((a.cpu() - b).abs().max()) / largest
+                             for a, b in zip(leaves(card_params),
+                                             leaves(cpu_params)))
+        if max(errs.values()) > CARD_CPU_TOL:
+            raise AssertionError(f"H {arch}: {errs} from the CPU "
+                                 f"(tolerance {CARD_CPU_TOL})")
+        emit_row("H_train_step_card_vs_cpu", {
+            "model": cfg.name, "family": cfg.family, "reduced": True,
+            "dtype": "float32", "batch": LT_CPU_BATCH, "seq": LT_CPU_SEQ,
+            "loss": float(card_m["loss"]), "max_rel_err": errs,
+            "tolerance": CARD_CPU_TOL, "launches": counts,
+            "tf32": torch.backends.cuda.matmul.allow_tf32})
+        del cpu_params, card_params
+
+    # -- (I) mamba2-370m uncut: train, loss through ssd_scan, resume, serve --
+    fresh()
+    mcfg = get_config(MAMBA_ARCH)
+    gen.manual_seed(79)
+    api = get_model(mcfg)
+    params = api.init(gen)
+    opt_init, opt_update = make_optimizer(
+        LT_MAMBA_LR, warmup=LT_MAMBA_WARMUP,
+        steps=LT_MAMBA_STEPS + LT_RESUME_STEPS)
+    opt = opt_init(params)
+    step = make_train_step(api, opt_update)
+    data = stream(mcfg, LT_SEQ, LT_BATCH, 1)
+    batches = [on_card(next(data))
+               for _ in range(LT_MAMBA_STEPS + LT_RESUME_STEPS + 1)]
+    before = leaf_sums(params)
+    torch.cuda.reset_peak_memory_stats()
+    (params, opt, losses, norms, secs), counts = counted(
+        lambda: run_steps(step, params, opt, batches[:LT_MAMBA_STEPS]))
+    check_counts("I train", counts, none)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    moved = sum(a != b for a, b in zip(before, leaf_sums(params)))
+    emit_row("I_mamba2_train", {
+        "model": mcfg.name, "dtype": "bfloat16", "remat": mcfg.remat,
+        "layers": mcfg.n_layers, "d_model": mcfg.d_model,
+        "ssd": [mcfg.ssm_heads, mcfg.ssm_headdim, mcfg.ssm_state],
+        "vocab": mcfg.vocab, "params": sum(p.numel() for p in leaves(params)),
+        "batch": LT_BATCH, "seq": LT_SEQ, "steps": LT_MAMBA_STEPS,
+        "ssd_gradient": "chunked plain version (launch.steps.GRAD_BACKEND)",
+        "peak_mem_gb": peak, "losses": losses, "grad_norms": norms,
+        "leaves_moved": [moved, len(before)], "launches": counts,
+        **step_row(secs, LT_BATCH * LT_SEQ)})
+
+    # The loss without a gradient, through ssd_scan and through the chunked
+    # plain SSD, on the params upcast to f32.
+    fcfg = mcfg.with_(dtype=torch.float32)
+    f32_params = upcast(params)
+    held_out = batches[-1]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        kernel_loss, counts = counted(
+            lambda: float(get_model(fcfg).loss(f32_params, held_out)))
+        kernel_s = time.perf_counter() - t0
+        check_counts("I loss", counts, expect(ssd_scan=mcfg.n_layers))
+        t0 = time.perf_counter()
+        plain_loss = float(get_model(fcfg, backend={
+            "ssd_scan": "chunked"}).loss(f32_params, held_out))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    loss_err = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    if not np.isfinite(kernel_loss) or loss_err > CARD_CPU_TOL:
+        raise AssertionError(f"I: the loss through ssd_scan {kernel_loss} "
+                             f"against the chunked plain SSD's {plain_loss}")
+    del f32_params
+    emit_row("I_mamba2_no_grad_loss", {
+        "dtype": "float32 (the trained params upcast)",
+        "loss_ssd_scan": kernel_loss, "loss_chunked": plain_loss,
+        "rel_err": loss_err, "tolerance": CARD_CPU_TOL, "launches": counts,
+        "ssd_scan_s": kernel_s, "chunked_s": plain_s})
+
+    # Checkpoint round trip, then LT_RESUME_STEPS more steps from the live
+    # state and from the restored one, deterministic algorithms on.
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        save(ckpt_dir, LT_MAMBA_STEPS, {"params": params})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = restore(ckpt_dir, {"params": params})["params"]
+        restore_s = time.perf_counter() - t0
+        if latest_step(ckpt_dir) != LT_MAMBA_STEPS or not all(
+                torch.equal(a, b) for a, b in zip(leaves(params),
+                                                  leaves(restored))):
+            raise AssertionError("I: the restored params differ from the "
+                                 "saved ones")
+        opt_copy = opt._replace(mu=tree_map(torch.clone, opt.mu),
+                                nu=tree_map(torch.clone, opt.nu))
+        resume = batches[LT_MAMBA_STEPS:LT_MAMBA_STEPS + LT_RESUME_STEPS]
+        torch.use_deterministic_algorithms(True)
+        try:
+            (_, _, live, _, _), counts = counted(
+                lambda: run_steps(step, params, opt, resume))
+            restored, _, again, _, _ = run_steps(step, restored, opt_copy,
+                                                 resume)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check_counts("I resume", counts, none)
+        if live != again:
+            raise AssertionError(f"I: resumed losses {again} differ from "
+                                 f"the live run's {live}")
+    finally:
+        shutil.rmtree(ckpt_dir)
+    emit_row("I_mamba2_checkpoint_resume", {
+        "leaves": len(leaves(params)), "bit_equal_leaves": True,
+        "save_s": save_s, "restore_s": restore_s,
+        "resume_steps": LT_RESUME_STEPS, "live_losses": live,
+        "restored_losses": again, "deterministic_algorithms": True,
+        "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG")})
+    del params, opt, opt_copy, step, batches
+
+    # Serve the restored, trained model in f32 through the wave Engine at
+    # (k)'s shape: ssd_scan in the prefill, tokens equal to the plain
+    # sequential SSD's.
+    served = upcast(restored)
+    del restored
+    prompts = np.random.default_rng(79).integers(
+        0, mcfg.vocab, (MAMBA_BATCH, MAMBA_PROMPT))
+    reqs = [Request(uid=i, prompt=prompts[i], max_new_tokens=MAMBA_NEW)
+            for i in range(MAMBA_BATCH)]
+    cache_len = MAMBA_PROMPT + MAMBA_NEW
+    engine = Engine(get_model(fcfg), served, batch_slots=MAMBA_BATCH,
+                    cache_len=cache_len)
+    engine.serve([Request(uid=0, prompt=prompts[0, :128], max_new_tokens=2)])
+    done, counts = counted(lambda: engine.serve(reqs))
+    check_counts("I serve", counts, expect(ssd_scan=mcfg.n_layers))
+    logits = engine.last_prefill_logits.clone()
+    plain = Engine(get_model(fcfg, backend={"ssd_scan": "ref"}), served,
+                   batch_slots=MAMBA_BATCH, cache_len=cache_len)
+    plain_done = plain.serve(reqs)
+    want = plain.last_prefill_logits
+    max_rel = float((logits - want).abs().max() / want.abs().max())
+    if max_rel > F32_LOGIT_TOL or not torch.isfinite(logits).all():
+        raise AssertionError(f"I serve: prefill logits {max_rel} of the "
+                             f"largest from the plain SSD's")
+    same_tokens("I serve", by_uid(done), by_uid(plain_done))
+    emit_row("I_mamba2_trained_serve_f32", {
+        "batch": MAMBA_BATCH, "prompt": MAMBA_PROMPT, "new_tokens": MAMBA_NEW,
+        "prefill_s": done[0].prefill_s,
+        "prefill_tok_per_s": MAMBA_BATCH * MAMBA_PROMPT / done[0].prefill_s,
+        "decode_s": done[0].decode_s,
+        "decode_tok_per_s": MAMBA_BATCH * (MAMBA_NEW - 1) / done[0].decode_s,
+        "launches": counts, "logits_max_rel_err": max_rel,
+        "tokens_equal_to_plain_ssd": True,
+        "plain_prefill_s": plain_done[0].prefill_s,
+        "first_tokens": [c.tokens[:8].tolist() for c in done]})
+    del engine, plain, served, logits, want
+
+    # -- (J) the reference example's ~55M qwen3-family model, whole --------
+    fresh()
+    jcfg = get_config(QWEN_ARCH).with_(**LT_SMALL)
+    gen.manual_seed(0)
+    api = get_model(jcfg)
+    params = api.init(gen)
+    opt_init, opt_update = make_optimizer(LT_SMALL_LR,
+                                          warmup=LT_SMALL_WARMUP,
+                                          steps=LT_SMALL_STEPS)
+    step = make_train_step(api, opt_update)
+    data = stream(jcfg, LT_SMALL_SEQ, LT_BATCH, 0)
+    batches = [on_card(next(data)) for _ in range(LT_SMALL_STEPS)]
+    t0 = time.perf_counter()
+    (params, _, losses, norms, secs), counts = counted(
+        lambda: run_steps(step, params, opt_init(params), batches))
+    wall = time.perf_counter() - t0
+    check_counts("J", counts, none)
+    first, last = learned("J", losses, LT_SMALL_MARGIN)
+    emit_row("J_example_55m_train", {
+        "model": "qwen3 family, examples/train_llm.py's default",
+        **LT_SMALL, "params": sum(p.numel() for p in leaves(params)),
+        "batch": LT_BATCH, "seq": LT_SMALL_SEQ, "steps": LT_SMALL_STEPS,
+        "lr": LT_SMALL_LR, "warmup": LT_SMALL_WARMUP, "wall_s": wall,
+        "mean_loss_first5": first, "mean_loss_last5": last,
+        "required_drop": LT_SMALL_MARGIN, "losses_every_50": losses[::50],
+        "final_loss": losses[-1], "launches": counts,
+        **{k: v for k, v in step_row(secs, LT_BATCH * LT_SMALL_SEQ).items()
+           if k != "step_ms"}})
+    del params, step, batches, api
+
+    # -- (K) the launcher on the card --------------------------------------
+    fresh()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    argv = ["--arch", MAMBA_ARCH, "--reduced", "--steps", "5",
+            "--ckpt-dir", ckpt_dir, "--ckpt-every", "5"]
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    try:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv],
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": src})
+        wall = time.perf_counter() - t0
+        latest = latest_step(ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir)
+    if proc.returncode != 0 or latest != 5:
+        raise AssertionError(f"K: launch.train exited {proc.returncode}, "
+                             f"LATEST {latest}: {proc.stdout[-2000:]}"
+                             f"{proc.stderr[-2000:]}")
+    emit_row("K_launch_train", {"argv": argv[:-4] + ["--ckpt-dir", "<tmp>",
+                                                     "--ckpt-every", "5"],
+                                "exit_code": proc.returncode,
+                                "latest": latest, "wall_s": wall,
+                                "stdout": proc.stdout.splitlines()[-3:]})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3139,6 +3582,11 @@ def main():
     for k in COUNTED:
         launches[k] += fam_launches[k]
     phase_done("families")
+    # -- 14. llm_train: the LLM training stack on the card -----------------
+    train_llm_launches = llm_train_phase(dev, smi)
+    for k in COUNTED:
+        launches[k] += train_llm_launches[k]
+    phase_done("llm_train")
     emit({"phase": "seconds", "total": time.perf_counter() - started,
           **seconds, "trainer_wall_s": train_walls})
 
@@ -3227,6 +3675,7 @@ def main():
          "launches": launches["ssd_scan"],
          "llm_launches": llm_launches["ssd_scan"],
          "families_launches": fam_launches["ssd_scan"],
+         "llm_train_launches": train_llm_launches["ssd_scan"],
          "max_abs_err": ssd_err,
          "ms": ms(ssd_head),
          "ms_source": ("torch.profiler" if ssd_head["ms"] is not None

@@ -16,7 +16,8 @@ The ``backend`` contract:
   kernel can be held to its plain version end to end.
 
 A CUDA tensor under ``"auto"`` launches the kernel or raises: nothing falls
-back quietly.
+back quietly.  No kernel has a backward, so a launch on a tensor that
+requires grad (with grad mode on) raises too.
 """
 
 from __future__ import annotations
@@ -54,12 +55,24 @@ def _backend_of(backend: Backend, kernel: str) -> str:
 
 
 def _use_kernel(t: torch.Tensor, backend: Backend, kernel: str) -> bool:
+    """Whether the call on activation ``t`` launches ``kernel`` (see the
+    module docstring).  No kernel has a backward: a launch on a tensor
+    that autograd records raises, where its output would silently carry no
+    gradient.  A gradient takes the plain versions, asked for by name
+    (``launch.steps.GRAD_BACKEND``; for ``ssd`` the chunked SSD, the
+    reference's own gradient path off the TPU)."""
     backend = _backend_of(backend, kernel)
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if backend == "ref":
         return False
     if t.device.type == "cuda":
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(
+                f"the {kernel} kernel has no backward, and its input "
+                "requires grad: differentiate the plain version (backend "
+                f"{{{kernel!r}: 'ref'}}, or 'chunked' for ssd_scan; "
+                "launch.steps.GRAD_BACKEND), or run under torch.no_grad()")
         return True
     if backend == "kernel":
         raise ValueError(

@@ -5,6 +5,7 @@
 signatures for every family, so the serving engines are family-agnostic:
 
   init(generator, device="cuda") -> params
+  loss(params, batch) -> scalar                                (train)
   prefill(params, batch, cache_len) -> (cache, logits)
   decode(params, cache, batch, pos) -> (cache, logits)        pos: shared
   decode_multi(params, cache, batch, pos) -> (cache, logits)  pos: (B,)
@@ -16,8 +17,11 @@ signatures for every family, so the serving engines are family-agnostic:
 ``decode`` and ``decode_multi`` update the cache arena in place and return
 it.  The port has all six families: ``dense`` (transformer), ``moe``,
 ``ssm`` (mamba2), ``hybrid`` (Jamba), ``vlm`` (LLaVA-NeXT) and ``audio``
-(Whisper); ``loss`` waits for the LLM training stack (ROADMAP §1 item 4c).
-Batch layouts per family, as the reference:
+(Whisper).  ``loss`` is each family's ``loss_fn``: the mean next-token
+cross-entropy of a ``"train"`` batch (MoE adds ``moe.AUX_WEIGHT`` times its
+load-balance aux loss), each layer rematerialised under autograd when
+``cfg.remat == "layer"``; ``repro_torch.launch.steps.make_train_step``
+differentiates it.  Batch layouts per family, as the reference:
 
   dense/moe/ssm/hybrid: {tokens (B, S)}
   vlm:   {tokens (B, S - I), image_emb (B, I, VISION_D)} at prefill
@@ -58,6 +62,7 @@ PORTED_FAMILIES = tuple(_FAMILIES)
 class ModelAPI:
     cfg: ArchConfig
     init: Callable[..., Params]
+    loss: Callable[[Params, Batch], torch.Tensor]
     prefill: Callable[[Params, Batch, int], Tuple[Any, torch.Tensor]]
     decode: Callable[[Params, Any, Batch, Any], Tuple[Any, torch.Tensor]]
     decode_multi: Callable[[Params, Any, Batch, Any],
@@ -114,6 +119,13 @@ def _batch_specs(cfg: ArchConfig) -> Callable[[str, int, int], Batch]:
 
 
 def get_model(cfg: ArchConfig, *, backend: Backend = "auto") -> ModelAPI:
+    """The family's :class:`ModelAPI`, every kernel wrapper on its paths
+    given ``backend``.  Serving and a loss without a gradient take
+    ``"auto"``: the kernels on the card.  The train step differentiates
+    the model built with ``launch.steps.GRAD_BACKEND``
+    (``{"ssd_scan": "chunked", "qmatmul": "ref"}``): no kernel of the port
+    has a backward (``ops`` raises if one is asked for a gradient), and the
+    chunked SSD is the reference's own gradient path off the TPU."""
     fam = cfg.family
     if fam not in _FAMILIES:
         raise ValueError(f"unknown family {fam!r} ({cfg.name}): the port "
@@ -129,6 +141,9 @@ def get_model(cfg: ArchConfig, *, backend: Backend = "auto") -> ModelAPI:
         return mod.init_cache(cfg, batch, cache_len,
                               device=resolve_device(device))
 
+    def loss(p, b):
+        return mod.loss_fn(p, cfg, b, backend=backend)
+
     if fam == "vlm":
         def prefill(p, b, cl):
             return vlm.prefill(p, cfg, b, cl, backend=backend)
@@ -141,7 +156,7 @@ def get_model(cfg: ArchConfig, *, backend: Backend = "auto") -> ModelAPI:
             return mod.prefill(p, cfg, b["tokens"], cl, backend=backend)
 
     return ModelAPI(
-        cfg=cfg, init=init, prefill=prefill,
+        cfg=cfg, init=init, loss=loss, prefill=prefill,
         decode=lambda p, c, b, pos: mod.decode_step(
             p, cfg, c, b["tokens"], pos, backend=backend),
         decode_multi=lambda p, c, b, pos: mod.decode_step_multi(

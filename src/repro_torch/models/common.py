@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.core.layers import TORCH_INT_TYPES
 from repro_torch.core.quantize import quantize_tensor
@@ -118,6 +119,16 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,vd->bsv", x, p["emb"]).to(torch.float32)
 
 
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token cross-entropy; logits (B, S, V) f32, labels (B, S)
+    integer ids."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.to(torch.int64)[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
 def stack_layers(init_one: Callable[[], Params], n: int,
                  device: torch.device) -> Params:
     """``n`` draws of ``init_one()`` stacked on a leading layer axis on
@@ -167,6 +178,27 @@ def layer_slice(blocks: Params, layer: int) -> Params:
     if isinstance(blocks, dict):
         return {k: layer_slice(v, layer) for k, v in blocks.items()}
     return blocks[layer]
+
+
+def unstack(blocks: Params, n: int) -> list:
+    """The ``n`` per-layer views of stacked block params, every leaf split
+    once by ``torch.unbind``: under autograd each leaf then takes one
+    stacking backward, where :func:`layer_slice`'s indexing would give each
+    layer's gradient a zero-filled copy of the whole stack."""
+    if isinstance(blocks, dict):
+        per_key = {k: unstack(v, n) for k, v in blocks.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(blocks, 0))
+
+
+def remat(cfg_remat: str, fn: Callable, *args):
+    """``fn(*args)``, recomputed in the backward pass instead of keeping its
+    activations when ``cfg_remat == "layer"`` and autograd records (the
+    reference's ``jax.checkpoint`` around each layer's scan body)."""
+    if cfg_remat == "layer" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -102,26 +102,40 @@ def _ffn(sb: Params, cfg: ArchConfig, i: int, h: torch.Tensor,
 
 def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                    backend: kops.Backend = "auto") -> torch.Tensor:
-    """Teacher-forced logits (B, S, vocab) f32."""
+    """Teacher-forced logits (B, S, vocab) f32; each super-block
+    rematerialised under autograd when ``cfg.remat == "layer"``."""
     period, attn_pos, n_super, *_ = _layout(cfg)
     x = cm.embed(params["embed"], tokens).to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for s in range(n_super):
-        sb = _take(params["blocks"], s)
+
+    def body(sb, h):
         mamba_j = 0
         for i in range(period):
             if i == attn_pos:
-                h = cm.rmsnorm(sb["attn"]["ln"], x)
-                x = x + cm.attn_forward(sb["attn"]["attn"], _attn_cfg(cfg), h,
-                                        positions, backend=backend)
+                hn = cm.rmsnorm(sb["attn"]["ln"], h)
+                h = h + cm.attn_forward(sb["attn"]["attn"], _attn_cfg(cfg),
+                                        hn, positions, backend=backend)
             else:
                 p = _take(sb["mamba"], mamba_j)
-                x = x + mb.mamba_forward(p["mixer"], cfg,
-                                         cm.rmsnorm(p["ln"], x),
+                h = h + mb.mamba_forward(p["mixer"], cfg,
+                                         cm.rmsnorm(p["ln"], h),
                                          backend=backend)
                 mamba_j += 1
-            x = cm.constrain(x + _ffn(sb, cfg, i, x, backend), "btd")
+            h = cm.constrain(h + _ffn(sb, cfg, i, h, backend), "btd")
+        return h
+
+    for sb in cm.unstack(params["blocks"], n_super):
+        x = cm.remat(cfg.remat, body, sb, x)
     return cm.unembed(params["embed"], cm.rmsnorm(params["final_norm"], x))
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, backend: kops.Backend = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``)."""
+    return cm.cross_entropy(
+        forward_logits(params, cfg, batch["tokens"], backend=backend),
+        batch["labels"])
 
 
 # -- serving ---------------------------------------------------------------

@@ -89,6 +89,11 @@ def _causal_conv(p: Params, xbc: torch.Tensor) -> torch.Tensor:
     k, c = p["conv_w"].shape
     w = p["conv_w"].to(xbc.dtype).t().unsqueeze(1)        # (C, 1, K)
     y = F.conv1d(F.pad(xbc.transpose(1, 2), (k - 1, 0)), w, groups=c)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xbc, p["conv_w"], p["conv_b"])):
+        # Autograd takes neither an out= argument nor an in-place SiLU of
+        # the tensor its backward reads: the same values, out of place.
+        return F.silu(y.transpose(1, 2) + p["conv_b"].to(xbc.dtype))
     out = torch.empty(xbc.shape, dtype=xbc.dtype, device=xbc.device)
     torch.add(y.transpose(1, 2), p["conv_b"].to(xbc.dtype), out=out)
     return F.silu(out, inplace=True)
@@ -223,15 +228,28 @@ def model_init(generator: torch.Generator, cfg: ArchConfig, *,
 
 def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                    backend: kops.Backend = "auto") -> torch.Tensor:
-    """Teacher-forced logits (B, S, vocab) f32."""
+    """Teacher-forced logits (B, S, vocab) f32; each layer rematerialised
+    under autograd when ``cfg.remat == "layer"``."""
     x = cm.embed(params["embed"], tokens).to(cfg.dtype)
-    for layer in range(cfg.n_layers):
-        blk = _layer(params["blocks"], layer)
-        x = x + mamba_forward(blk["mixer"], cfg, cm.rmsnorm(blk["ln"], x),
+
+    def body(blk, h):
+        h = h + mamba_forward(blk["mixer"], cfg, cm.rmsnorm(blk["ln"], h),
                               backend=backend)
-        x = cm.constrain(x, "btd")
+        return cm.constrain(h, "btd")
+
+    for blk in cm.unstack(params["blocks"], cfg.n_layers):
+        x = cm.remat(cfg.remat, body, blk, x)
     x = cm.rmsnorm(params["final_norm"], x)
     return cm.unembed(params["embed"], x)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, backend: kops.Backend = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``labels``)."""
+    return cm.cross_entropy(
+        forward_logits(params, cfg, batch["tokens"], backend=backend),
+        batch["labels"])
 
 
 def cache_spec(cfg: ArchConfig, batch: int, cache_len: int

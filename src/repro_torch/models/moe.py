@@ -176,6 +176,8 @@ def make_ffn_apply(cfg: ArchConfig, dispatch: str = "einsum"):
 # Full MoE decoder (granite, mixtral): transformer blocks with the MoE FFN.
 # ---------------------------------------------------------------------------
 
+AUX_WEIGHT = 0.01   # the load-balance aux loss's weight in the train loss
+
 
 def model_init(generator: torch.Generator, cfg: ArchConfig, *,
                device: torch.device) -> Params:
@@ -187,22 +189,36 @@ def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                    dispatch: str = "einsum", *,
                    backend: kops.Backend = "auto"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced logits (B, S, vocab) f32 and the mean aux loss."""
+    """Teacher-forced logits (B, S, vocab) f32 and the mean aux loss; each
+    layer rematerialised under autograd when ``cfg.remat == "layer"``."""
     x = cm.embed(params["embed"], tokens).to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     fwd = moe_forward_einsum if dispatch == "einsum" else moe_forward_ragged
     acfg = tf._attn_cfg(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in range(cfg.n_layers):
-        blk = cm.layer_slice(params["blocks"], layer)
-        x = x + cm.attn_forward(blk["attn"], acfg,
-                                cm.rmsnorm(blk["ln1"], x), positions,
+
+    def body(blk, h):
+        h = h + cm.attn_forward(blk["attn"], acfg,
+                                cm.rmsnorm(blk["ln1"], h), positions,
                                 backend=backend)
-        out, aux_l = fwd(blk["ffn"], cfg, cm.rmsnorm(blk["ln2"], x))
-        x = cm.constrain(x + out, "btd")
+        out, aux_l = fwd(blk["ffn"], cfg, cm.rmsnorm(blk["ln2"], h))
+        return cm.constrain(h + out, "btd"), aux_l
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in cm.unstack(params["blocks"], cfg.n_layers):
+        x, aux_l = cm.remat(cfg.remat, body, blk, x)
         aux = aux + aux_l
     x = cm.rmsnorm(params["final_norm"], x)
     return cm.unembed(params["embed"], x), aux / cfg.n_layers
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            dispatch: str = "einsum", *, backend: kops.Backend = "auto"
+            ) -> torch.Tensor:
+    """Cross-entropy plus ``AUX_WEIGHT`` times the mean load-balance aux
+    loss."""
+    logits, aux = forward_logits(params, cfg, batch["tokens"], dispatch,
+                                 backend=backend)
+    return cm.cross_entropy(logits, batch["labels"]) + AUX_WEIGHT * aux
 
 
 def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,

@@ -152,11 +152,16 @@ def decoder_hidden(params: Params, cfg: ArchConfig, x: torch.Tensor,
                    positions: torch.Tensor,
                    ffn_apply: Optional[FfnApply] = None, *,
                    backend: kops.Backend = "auto") -> torch.Tensor:
-    """Run the block stack over embedded inputs x (B, S, D)."""
+    """Run the block stack over embedded inputs x (B, S, D), each layer
+    rematerialised under autograd when ``cfg.remat == "layer"``."""
     ffn_apply = ffn_apply or _dense_ffn(cfg, backend)
-    for layer in range(cfg.n_layers):
-        x = block_forward(cm.layer_slice(params["blocks"], layer), cfg, x,
-                          positions, ffn_apply, backend=backend)
+
+    def body(blk, h):
+        return block_forward(blk, cfg, h, positions, ffn_apply,
+                             backend=backend)
+
+    for blk in cm.unstack(params["blocks"], cfg.n_layers):
+        x = cm.remat(cfg.remat, body, blk, x)
     return cm.rmsnorm(params["final_norm"], x)
 
 
@@ -171,6 +176,19 @@ def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     positions = torch.arange(x.shape[1], device=x.device)
     h = decoder_hidden(params, cfg, x, positions, ffn_apply, backend=backend)
     return cm.unembed(params["embed"], h)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            ffn_apply: Optional[FfnApply] = None, *,
+            backend: kops.Backend = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``;
+    a ``prefix_embed`` is prepended and its positions' logits left out)."""
+    prefix = batch.get("prefix_embed")
+    logits = forward_logits(params, cfg, batch["tokens"], ffn_apply,
+                            prefix_embed=prefix, backend=backend)
+    if prefix is not None:
+        logits = logits[:, prefix.shape[1]:]
+    return cm.cross_entropy(logits, batch["labels"])
 
 
 # -- serving ---------------------------------------------------------------

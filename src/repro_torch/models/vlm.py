@@ -62,6 +62,16 @@ def forward_logits(params: Params, cfg: ArchConfig,
                              backend=backend)
 
 
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, backend: kops.Backend = "auto") -> torch.Tensor:
+    """The transformer's loss over the text, with the projected
+    ``image_emb`` as its prefix (whose positions the loss leaves out)."""
+    return tf.loss_fn(params, cfg,
+                      dict(batch,
+                           prefix_embed=project(params, batch["image_emb"])),
+                      backend=backend)
+
+
 def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
             cache_len: int, *, backend: kops.Backend = "auto"
             ) -> Tuple[Dict[str, Any], torch.Tensor]:

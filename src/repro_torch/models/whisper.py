@@ -122,8 +122,7 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
     x = frames.to(cfg.dtype) + sinusoids(positions, cfg.d_model).to(cfg.dtype)
     acfg = _attn_cfg(cfg)
     mask = torch.ones((f, f), dtype=torch.bool, device=frames.device)
-    for layer in range(cfg.n_layers):
-        blk = cm.layer_slice(params["enc_blocks"], layer)
+    for blk in cm.unstack(params["enc_blocks"], cfg.n_layers):
         # bidirectional: every frame attends to every frame
         q, k, v = cm.attn_qkv(blk["attn"], acfg, cm.rmsnorm(blk["ln1"], x),
                               positions, backend=backend)
@@ -157,19 +156,34 @@ def _cross_and_mlp(blk: Params, cfg: ArchConfig, x: torch.Tensor,
 def forward_logits(params: Params, cfg: ArchConfig, frames: torch.Tensor,
                    tokens: torch.Tensor, *, backend: kops.Backend = "auto"
                    ) -> torch.Tensor:
-    """Teacher-forced logits (B, S, vocab) f32."""
+    """Teacher-forced logits (B, S, vocab) f32; each decoder layer
+    rematerialised under autograd when ``cfg.remat == "layer"`` (the
+    encoder's are not, as in the reference)."""
     enc = encode(params, cfg, frames, backend=backend)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, cfg, tokens, sinusoids(positions, cfg.d_model))
     acfg = _attn_cfg(cfg)
-    for layer in range(cfg.n_layers):
-        blk = cm.layer_slice(params["dec_blocks"], layer)
+
+    def body(blk, h, enc):
         kc, vc = cross_kv(blk["cross"], cfg, enc, backend=backend)
-        x = x + cm.attn_forward(blk["self_attn"], acfg,
-                                cm.rmsnorm(blk["ln1"], x), positions,
+        h = h + cm.attn_forward(blk["self_attn"], acfg,
+                                cm.rmsnorm(blk["ln1"], h), positions,
                                 backend=backend)
-        x = _cross_and_mlp(blk, cfg, x, kc, vc, backend)
+        return _cross_and_mlp(blk, cfg, h, kc, vc, backend)
+
+    for blk in cm.unstack(params["dec_blocks"], cfg.n_layers):
+        x = cm.remat(cfg.remat, body, blk, x, enc)
     return cm.unembed(params["embed"], cm.rmsnorm(params["final_norm"], x))
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, backend: kops.Backend = "auto") -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``frames``, ``tokens``,
+    ``labels``)."""
+    return cm.cross_entropy(
+        forward_logits(params, cfg, batch["frames"], batch["tokens"],
+                       backend=backend),
+        batch["labels"])
 
 
 # -- serving -----------------------------------------------------------------

@@ -26,7 +26,10 @@ exported SINT block bit-exact against the numpy oracle, whose logits the
 card (autograd and Adam in f32, validation through ``fused_mlp``) follows
 the CPU path from the same init: train losses and validation metrics within
 1e-4 relative (an accuracy within one validation window), the returned
-params within 1e-4 of the largest weight.
+params within 1e-4 of the largest weight.  The LLM train step launches no
+kernel (no kernel has a backward: ``ops`` raises when one is asked for a
+gradient) and follows the CPU within 1e-4; the loss without a gradient runs
+``ssd_scan`` and equals the chunked plain version's within 1e-4 relative.
 """
 
 import numpy as np
@@ -894,3 +897,94 @@ def test_training_on_card_follows_the_cpu():
             assert got.device.type == "cuda" and not got.requires_grad
             torch.testing.assert_close(got.cpu(), v, rtol=0,
                                        atol=1e-4 * largest)
+
+
+def test_ssd_raises_under_grad():
+    """No kernel has a backward: ``ops.ssd`` on card tensors that require
+    grad raises (under ``"auto"`` and ``"kernel"``) and launches nothing;
+    under ``torch.no_grad()`` it launches; the chunked plain version takes
+    the gradient."""
+    x, dt, a, b, c = ssd_inputs(1, 128, 4, 64, 128, 1)
+    x = x.requires_grad_(True)
+    before = ssd_scan.launches
+    for backend in ("auto", "kernel"):
+        with pytest.raises(RuntimeError, match="ssd_scan kernel has no "
+                           "backward"):
+            ops.ssd(x, dt, a, b, c, backend=backend)
+    assert ssd_scan.launches == before
+    with torch.no_grad():
+        y = ops.ssd(x, dt, a, b, c)
+    assert ssd_scan.launches == before + 1
+    want = ops.ssd(x, dt, a, b, c, backend={"ssd_scan": "chunked"})
+    want.sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+    torch.testing.assert_close(y, want.detach(), rtol=2e-4, atol=2e-5)
+
+
+TRAIN_FAMILIES = ("qwen3_8b", "granite_moe_1b_a400m", "mamba2_370m",
+                  "jamba_1_5_large_398b", "llava_next_34b", "whisper_base")
+
+
+@pytest.mark.parametrize("arch", ("mamba2_370m", "jamba_1_5_large_398b"))
+def test_no_grad_loss_through_ssd_scan_equals_chunked(arch):
+    """The loss without a gradient (reduced, f32) runs ssd_scan once per
+    Mamba layer and equals the same loss through the chunked plain SSD
+    within 1e-4 relative."""
+    cfg = get_config(arch).reduced().with_(dtype=torch.float32)
+    api = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(gen)
+    batch = api.init_batch("train", 2, 128, gen)
+    n_mamba = cfg.n_layers - cfg.n_layers // max(cfg.attn_period, 1) \
+        if cfg.family == "hybrid" else cfg.n_layers
+    before = ssd_scan.launches
+    with torch.no_grad():
+        got = api.loss(params, batch)
+        assert ssd_scan.launches - before == n_mamba
+        want = get_model(cfg, backend={"ssd_scan": "chunked"}).loss(
+            params, batch)
+    assert ssd_scan.launches - before == n_mamba
+    assert torch.isfinite(got)
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_step_on_card_follows_the_cpu(arch):
+    """One AdamW train step of the reduced f32 config on the card and on the
+    CPU from the same params and batch: no kernel launched (the gradient
+    takes the plain versions), loss and gradient norm within 1e-4
+    relative, every gradient leaf within 1e-4 of its largest value, the
+    updated params within 1e-4 of the largest param (a zero-initialised
+    leaf holds only AdamW's first +-lr step, whose signs follow the last
+    bits of gradients near zero)."""
+    from repro_torch.launch.steps import (loss_and_grads, make_optimizer,
+                                          make_train_step)
+    from repro_torch.optim.adamw import leaves, tree_map
+    cfg = get_config(arch).reduced().with_(dtype=torch.float32)
+    api = get_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    cpu_params = api.init(gen, device="cpu")
+    cpu_batch = api.init_batch("train", 2, 64, gen, device="cpu")
+    card_params = tree_map(lambda p: p.to("cuda"), cpu_params)
+    card_batch = {k: v.to("cuda") for k, v in cpu_batch.items()}
+    opt_init, opt_update = make_optimizer()
+    step = make_train_step(api, opt_update)
+    before = (ssd_scan.launches, qmatmul.launches)
+    _, card_grads = loss_and_grads(api, card_params, card_batch)
+    card_params, _, card_m = step(card_params, opt_init(card_params),
+                                  card_batch)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, qmatmul.launches) == before
+    _, cpu_grads = loss_and_grads(api, cpu_params, cpu_batch)
+    cpu_params, _, cpu_m = step(cpu_params, opt_init(cpu_params), cpu_batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(card_m[k]) - float(cpu_m[k])) \
+            <= 1e-4 * abs(float(cpu_m[k]))
+    for got, want in zip(leaves(card_grads), leaves(cpu_grads)):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    largest = max(float(p.abs().max()) for p in leaves(cpu_params))
+    for got, want in zip(leaves(card_params), leaves(cpu_params)):
+        assert got.device.type == "cuda" and not got.requires_grad
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * largest)
