@@ -300,6 +300,28 @@ stdout; a failing phase raises and the script exits non-zero:
              (K) ``python -m repro_torch.launch.train --arch mamba2_370m
              --reduced --steps 5 --ckpt-dir <tmp> --ckpt-every 5`` exits 0
              and leaves LATEST = 5.
+15. mesh   — the fleet served on torch.distributed meshes, one process
+             per rank (repro_torch.launch.mesh.spawn; the kernels built
+             before any rank starts), at full width, window 200, stride
+             10, 21 steps after the ring fills: (L) the SINT classifier,
+             fused, on a (4,) data mesh, 4 x 1024 plants; (M) (L) in REAL;
+             (N) the SINT classifier per layer on a (2, 2) mesh, 2 x 1024
+             plants, its 64-wide layer column-sharded (32 columns a rank
+             through qmatmul), and the same mesh run with qmatmul plain
+             (backend="ref"); (O) the SINT autoencoder on (2, 2)
+             (three wide layers); (P) the four-head SINT fleet on a (2,)
+             data mesh, 2 x 1024 plants a group, per group and with
+             megakernel=True; (Q) one rank over NCCL on the (1,) and the
+             host (1, 1) mesh, 1024 plants.  (L)-(P) run on four ranks:
+             over NCCL, one rank per card, on a machine with four cards;
+             else over gloo, the ranks sharing the card.  Every rank's
+             verdicts equal those of the unsharded engine over the same
+             plants on the same card (run in this process), SINT outputs
+             torch.equal, REAL within 1e-6 relative, the grouped fleet's
+             as run (h)'s; each rank's launches and gathers a step are
+             counted.  One line per run: backend, ranks and their
+             devices, windows/s, p50/p99 verdict latency, deadline misses,
+             launches and gathers a step by rank, gather ms a step.
 
 Then the wall seconds of each phase and in all, and each trainer's wall
 seconds (``{"phase": "seconds"}``),
@@ -439,6 +461,11 @@ LT_SMALL_STEPS, LT_SMALL_SEQ, LT_SMALL_LR, LT_SMALL_WARMUP = 300, 256, \
 # The drop of tests/test_system.py::test_loss_decreases: the mean of the
 # last 5 losses at least this far below the first 5's.
 LT_SMALL_MARGIN = 0.3
+# Phase 15: fleet meshes (module docstring).  (L)-(P) on MESH_WORLD ranks,
+# MESH_PLANTS plants a data shard (a group a shard in (P)); (Q) one NCCL
+# rank.  REAL (M) is held to the unsharded engine within MESH_REAL_RTOL.
+MESH_WORLD, MESH_PLANTS, MESH_REAL_RTOL = 4, 1024, 1e-6
+Q_BACKEND = "nccl"
 
 
 def emit(obj):
@@ -2252,6 +2279,277 @@ def llm_train_phase(dev, smi):
     return launches
 
 
+def mesh_backend(world):
+    """NCCL with one rank per card where the machine has the cards; gloo
+    with the ranks sharing the cards otherwise (NCCL refuses two ranks on
+    one card)."""
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def serve_outputs(engine, readings):
+    """Every cycle of ``readings`` through a fleet engine: (each verdict's
+    (stream, cycle, pred, group), each verdict step's outputs by unit)."""
+    outs, verdicts = [], []
+    for c in range(len(readings)):
+        got = engine.ingest(readings[c])
+        if got:
+            verdicts.extend((v.stream, v.cycle, v.pred, v.group) for v in got)
+            outs.append({k: v.copy() for k, v in
+                         engine.last_outputs.items()})
+    return verdicts, outs
+
+
+def mesh_engine(run, models, dev, mesh):
+    """The engine of a phase-15 run on ``mesh`` (None: unsharded), its
+    params made on ``dev`` from the host copies in ``models``."""
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.serving import (GroupedStreamEngine, ModelGroup,
+                                     StreamEngine)
+    kw = dict(run["kw"])
+    kw.update({"mesh": mesh} if mesh is not None else {"shard": False})
+    if run["kind"] == "grouped":
+        return GroupedStreamEngine(
+            [ModelGroup(name, model, params_from_numpy(p, device=dev),
+                        run["plants"], head, None, adapt)
+             for name, model, p, head, adapt in models["groups"]],
+            device=dev, **kw)
+    model, p = models[run["model"]]
+    if "head" in run:
+        kw["head"] = models[run["head"]]
+    return StreamEngine(model, params_from_numpy(p, device=dev),
+                        n_streams=run["plants"], device=dev, **kw)
+
+
+def mesh_readings(base, run):
+    """The run's readings: the scenario fleet ``base`` tiled to the run's
+    streams (all groups' for a grouped run)."""
+    n = run["plants"] * (len(GROUPS) if run["kind"] == "grouped" else 1)
+    return np.tile(base, (1, n // base.shape[1], 1))
+
+
+def mesh_rank(rank, world, runs, models, base, device_type):
+    """One rank of phase 15: build every mesh of ``runs`` (collectively, in
+    one order), then serve each run this rank is a member of.  Per run: the
+    verdicts and outputs, this rank's kernel launches (counted from 0 just
+    before the run), its stats, and the milliseconds its gathers took by
+    axis (each gather timed between two synchronizations)."""
+    from repro_torch.launch.mesh import make_fleet_mesh, make_host_mesh
+    from repro_torch.serving import core
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device_type == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device(device_type))
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    meshes = {}
+    for run in runs:
+        if run["mesh"] not in meshes:
+            meshes[run["mesh"]] = (
+                make_host_mesh(device_type=device_type)
+                if run["mesh"] == "host" else
+                make_fleet_mesh(run["mesh"][0], model_shards=run["mesh"][1],
+                                device_type=device_type))
+    gather, current, spent = core._gather, [None], {}
+
+    def timed(t, group, size):
+        sync()
+        t0 = time.perf_counter()
+        out = gather(t, group, size)
+        sync()
+        axis = "model" if group is current[0]._model_group else "data"
+        spent[axis] = spent.get(axis, 0.0) + time.perf_counter() - t0
+        return out
+
+    core._gather = timed
+    results = {}
+    try:
+        for run in runs:
+            mesh = meshes[run["mesh"]]
+            if mesh.get_coordinate() is None:
+                continue
+            engine = current[0] = mesh_engine(run, models, dev, mesh)
+            engine.warmup()
+            readings = mesh_readings(base, run)
+            spent.clear()
+            reset_counts()
+            verdicts, outs = serve_outputs(engine, readings)
+            sync()
+            counts = read_counts()
+            stats = engine.stats
+            results[run["name"]] = {
+                "verdicts": verdicts, "outs": outs, "launches": counts,
+                "steps": stats.steps, "dispatches": stats.dispatches,
+                "collectives": dict(stats.collectives),
+                "windows_per_s": stats.windows_per_s(),
+                "p50_ms": stats.latency_p(50) * 1e3,
+                "p99_ms": stats.latency_p(99) * 1e3,
+                "deadline_misses": stats.deadline_misses,
+                "gather_ms": {k: v * 1e3 for k, v in spent.items()},
+                "device": str(dev), "in_mesh": engine._in_mesh}
+            del engine
+            current[0] = None
+    finally:
+        core._gather = gather
+    return results
+
+
+def mesh_phase(dev, smi, models, base):
+    """Phase 15: runs (L)-(Q), each on its mesh against the unsharded engine
+    over the same plants on the same card.  Returns the launches of every
+    rank's runs, summed, by kernel."""
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn
+    # Built here, before any rank starts: the ranks load these builds.
+    build.build()
+    host = {k: (models[k][0], params_to_numpy(models[k][1]))
+            for k in ("cls_sint", "cls_real", "ae_sint")}
+    # Fresh head copies: a margin head caches its center on the card.
+    host["ae_head"] = dataclasses.replace(models["ae_head"])
+    host["groups"] = [(g.name, g.model, params_to_numpy(g.params),
+                       dataclasses.replace(g.head), g.adapt)
+                      for g in models["groups"]]
+    p = MESH_PLANTS
+    runs = [
+        dict(name="L_sint_classifier_fused", mesh=(4, 1), kind="stream",
+             model="cls_sint", plants=4 * p, kw={}, scheme="SINT",
+             per_step=(expect(fused_mlp=1), {"model": 0, "data": 1})),
+        dict(name="M_real_classifier_fused", mesh=(4, 1), kind="stream",
+             model="cls_real", plants=4 * p, kw={}, scheme="REAL",
+             per_step=(expect(fused_mlp=1), {"model": 0, "data": 1})),
+        dict(name="N_sint_classifier_per_layer", mesh=(2, 2), kind="stream",
+             model="cls_sint", plants=2 * p, kw={}, scheme="SINT",
+             twin_kw={"fused": False},
+             per_step=(expect(qmatmul=4), {"model": 1, "data": 1})),
+        # qmatmul is the per-layer step's only kernel: backend="ref" runs
+        # it plain.
+        dict(name="N_sint_classifier_per_layer_qmatmul_plain", mesh=(2, 2),
+             kind="stream", model="cls_sint", plants=2 * p,
+             kw={"backend": "ref"}, scheme="SINT",
+             twin_kw={"fused": False},
+             per_step=(expect(), {"model": 1, "data": 1})),
+        dict(name="O_sint_autoencoder_per_layer", mesh=(2, 2), kind="stream",
+             model="ae_sint", head="ae_head", plants=2 * p, kw={},
+             scheme="SINT", twin_kw={"fused": False},
+             per_step=(expect(qmatmul=4), {"model": 3, "data": 1})),
+        dict(name="P_sint_fleet_per_group", mesh=(2, 1), kind="grouped",
+             plants=2 * p, kw={}, scheme="SINT",
+             per_step=(expect(fused_mlp=4), {"model": 0, "data": 1})),
+        dict(name="P_sint_fleet_mega", mesh=(2, 1), kind="grouped",
+             plants=2 * p, kw={"megakernel": True}, scheme="SINT",
+             per_step=(expect(grouped_mlp=1), {"model": 0, "data": 1})),
+    ]
+    q_runs = [
+        dict(name="Q_sint_classifier_nccl_data1", mesh=(1, 1),
+             kind="stream", model="cls_sint", plants=p, kw={},
+             scheme="SINT",
+             per_step=(expect(fused_mlp=1), {"model": 0, "data": 1})),
+        dict(name="Q_sint_classifier_nccl_host_mesh", mesh="host",
+             kind="stream", model="cls_sint", plants=p, kw={},
+             scheme="SINT",
+             per_step=(expect(fused_mlp=1), {"model": 0, "data": 1})),
+    ]
+    # The unsharded twins, on this process's card.
+    twins = {}
+    for run in runs + q_runs:
+        twin_run = dict(run, kw=dict(run["kw"], **run.get("twin_kw", {})))
+        # The twin of a run on the plain qmatmul, or through the
+        # megakernel, is the default unsharded engine.
+        twin_run["kw"].pop("backend", None)
+        twin_run["kw"].pop("megakernel", None)
+        key = repr((twin_run["model"] if "model" in twin_run else "groups",
+                    twin_run["plants"], sorted(twin_run["kw"].items())))
+        if key not in twins:
+            engine = mesh_engine(twin_run, host, dev, None)
+            engine.warmup()
+            verdicts, outs = serve_outputs(engine, mesh_readings(base, run))
+            twins[key] = (verdicts, outs, engine.stats.windows_per_s())
+            del engine
+        run["twin"] = key
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(COUNTED, 0)
+    for world, bk, todo in ((MESH_WORLD, mesh_backend(MESH_WORLD), runs),
+                            (1, Q_BACKEND, q_runs)):
+        ranks = spawn(mesh_rank, world, bk,
+                      [{k: v for k, v in r.items() if k != "twin"}
+                       for r in todo], host, base, dev.type, timeout=600.0)
+        for run in todo:
+            got = [r[run["name"]] for r in ranks if run["name"] in r]
+            shape = run["mesh"]
+            want_ranks = 1 if shape == "host" else shape[0] * shape[1]
+            if len(got) != want_ranks:
+                raise AssertionError(f"{run['name']}: {len(got)} ranks "
+                                     f"served, expected {want_ranks}")
+            t_verdicts, t_outs, t_wps = twins[run["twin"]]
+            bit_equal, max_rel = True, 0.0
+            kernels, gathers = run["per_step"]
+            for g in got:
+                steps = g["steps"]
+                if steps != 21 or g["verdicts"] != t_verdicts:
+                    raise AssertionError(
+                        f"{run['name']}: {steps} steps; verdicts differ "
+                        "from the unsharded engine's")
+                if g["launches"] != {k: n * steps for k, n in
+                                     kernels.items()}:
+                    raise AssertionError(f"{run['name']}: launches "
+                                         f"{g['launches']} in {steps} steps")
+                if g["collectives"] != {k: n * steps for k, n in
+                                        gathers.items()}:
+                    raise AssertionError(
+                        f"{run['name']}: gathers {g['collectives']}")
+                if len(g["outs"]) != len(t_outs):
+                    raise AssertionError(f"{run['name']}: outputs")
+                for a_step, b_step in zip(g["outs"], t_outs):
+                    for k, b in b_step.items():
+                        a = a_step[k]
+                        if a.shape != b.shape or not np.isfinite(a).all():
+                            raise AssertionError(f"{run['name']}: bad {k}")
+                        if not np.array_equal(a, b):
+                            bit_equal = False
+                            max_rel = max(max_rel, float(np.max(
+                                np.abs(a - b) / np.maximum(np.abs(b),
+                                                           1e-30))))
+                for k in COUNTED:
+                    launches[k] += g["launches"][k]
+            if run["scheme"] == "SINT" and run["kind"] == "stream" \
+                    and not bit_equal:
+                raise AssertionError(f"{run['name']}: SINT outputs differ "
+                                     "from the unsharded engine's")
+            if run["kind"] == "grouped":
+                for g in got:
+                    same_outputs(run["name"], "SINT", g["outs"], t_outs)
+            elif max_rel > MESH_REAL_RTOL:
+                raise AssertionError(f"{run['name']}: outputs {max_rel} "
+                                     "relative from the unsharded engine's")
+            placement = ("one rank per card" if bk == "nccl" else
+                         f"{world} ranks sharing {torch.cuda.device_count()} "
+                         "card(s)")
+            emit({"phase": "mesh", "run": run["name"], "backend": bk,
+                  "world": world, "placement": placement,
+                  "mesh": ("host (1, 1)" if shape == "host" else
+                           list(shape) if shape[1] > 1 else [shape[0]]),
+                  "plants": run["plants"] * (len(GROUPS) if run["kind"]
+                                             == "grouped" else 1),
+                  "devices": [g["device"] for g in got],
+                  "steps": got[0]["steps"],
+                  "windows_per_s": [g["windows_per_s"] for g in got],
+                  "p50_ms": [g["p50_ms"] for g in got],
+                  "p99_ms": [g["p99_ms"] for g in got],
+                  "deadline_misses": [g["deadline_misses"] for g in got],
+                  "launches_per_step": [
+                      {k: n / g["steps"] for k, n in g["launches"].items()
+                       if n} for g in got],
+                  "collectives_per_step": [
+                      {k: n / g["steps"] for k, n in g["collectives"].items()}
+                      for g in got],
+                  "gather_ms_per_step": [
+                      {k: v / g["steps"] for k, v in g["gather_ms"].items()}
+                      for g in got],
+                  "equal_to_unsharded": True, "bit_equal": bit_equal,
+                  "max_rel_err": max_rel,
+                  "unsharded_windows_per_s": t_wps, "nvidia_smi": smi})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -3587,6 +3885,12 @@ def main():
     for k in COUNTED:
         launches[k] += train_llm_launches[k]
     phase_done("llm_train")
+    # -- 15. mesh: the fleet served on torch.distributed meshes -------------
+    mesh_launches = mesh_phase(
+        dev, smi, {"cls_sint": cls_sint, "cls_real": cls_real,
+                   "ae_sint": ae_sint, "ae_head": ae_head,
+                   "groups": sint_groups}, grouped_readings[:, :N_PLANTS])
+    phase_done("mesh")
     emit({"phase": "seconds", "total": time.perf_counter() - started,
           **seconds, "trainer_wall_s": train_walls})
 
@@ -3613,6 +3917,7 @@ def main():
          "source": "src/repro_torch/kernels/csrc/fused_mlp.cu",
          "replaces": "src/repro/kernels/fused_mlp.py:234",
          "launches": launches["fused_mlp"],
+         "mesh_launches": mesh_launches["fused_mlp"],
          "train_launches": train_launches["fused_mlp"],
          "max_abs_err": fused_err, "ms": ms(fused_head), "ms_source": source,
          "call_ms": fused_head["call_ms"], "plain_ms": fused_head["plain_ms"],
@@ -3625,7 +3930,8 @@ def main():
         {"name": "qmatmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
          "replaces": "src/repro/kernels/qmatmul.py:69",
-         "launches": launches["qmatmul"], "max_abs_err": q_err,
+         "launches": launches["qmatmul"],
+         "mesh_launches": mesh_launches["qmatmul"], "max_abs_err": q_err,
          "ms": sum(ms(r) for r in q_main), "ms_source": source,
          "call_ms": sum(r["call_ms"] for r in q_main),
          "plain_ms": sum(r["plain_ms"] for r in q_main),
@@ -3643,6 +3949,7 @@ def main():
          "source": "src/repro_torch/kernels/csrc/grouped_mlp.cu",
          "replaces": "src/repro/kernels/fused_mlp.py:473",
          "launches": launches["grouped_mlp"],
+         "mesh_launches": mesh_launches["grouped_mlp"],
          "train_launches": train_launches["grouped_mlp"],
          "max_abs_err": g_err,
          "ms": ms(g_head),
@@ -3658,7 +3965,9 @@ def main():
         {"name": "sparse_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sparse_matmul.cu",
          "replaces": "src/repro/kernels/sparse_matmul.py:85",
-         "launches": launches["sparse_matmul"], "max_abs_err": s_err,
+         "launches": launches["sparse_matmul"],
+         "mesh_launches": mesh_launches["sparse_matmul"],
+         "max_abs_err": s_err,
          "ms": ms(s_head),
          "ms_source": ("torch.profiler" if s_head["ms"] is not None
                        else "call_ms"),
@@ -3673,6 +3982,7 @@ def main():
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:85",
          "launches": launches["ssd_scan"],
+         "mesh_launches": mesh_launches["ssd_scan"],
          "llm_launches": llm_launches["ssd_scan"],
          "families_launches": fam_launches["ssd_scan"],
          "llm_train_launches": train_llm_launches["ssd_scan"],

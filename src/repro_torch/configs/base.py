@@ -28,6 +28,14 @@ ARCH_IDS = (
     "mixtral_8x22b",
 )
 
+# Input shapes assigned to this paper (global batch, sequence length).
+INPUT_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:

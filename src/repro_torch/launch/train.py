@@ -8,8 +8,8 @@ Random weights from ``--seed``; batches from ``data.SyntheticLM``; the vlm
 and audio families get zero ``image_emb``/``frames``, as the reference's
 launcher gives them.  Eager AdamW steps (``launch.steps``) on the card
 unless ``--device cpu``; ``--ckpt-dir`` saves ``{"params": ...}`` every
-``--ckpt-every`` steps (``checkpoint``).  Meshes (``--production-mesh``)
-are not ported.
+``--ckpt-every`` steps (``checkpoint``).  ``--production-mesh`` raises: the
+sharded train step it needs is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,7 +28,10 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_optimizer, make_train_step
 from repro_torch.models import vlm
 from repro_torch.models.api import get_model
-from repro_torch.serving.core import NOT_PORTED_MESH
+
+NOT_PORTED_PRODUCTION_MESH = (
+    "--production-mesh is not ported to PyTorch yet: it needs the sharded "
+    "LLM train step over DTensor (ROADMAP §1, next modules, item 1)")
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -49,7 +52,7 @@ def main(argv: Optional[list] = None) -> None:
     args = ap.parse_args(argv)
 
     if args.production_mesh:
-        raise NotImplementedError(NOT_PORTED_MESH)
+        raise NotImplementedError(NOT_PORTED_PRODUCTION_MESH)
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:

@@ -34,10 +34,29 @@ from repro_torch.kernels import ops as kops
 Params = Dict[str, Any]
 
 
+# ---------------------------------------------------------------------------
+# Activation-sharding hook.  `repro_torch.launch.shardings.install_hook` sets
+# a function mapping (tensor, logical name) to the tensor laid out for a mesh
+# (a DTensor redistributed to the reference's placements); with no hook, or
+# for a plain tensor, `constrain` is the identity.  Models stay mesh-agnostic.
+# ---------------------------------------------------------------------------
+
+_CONSTRAIN_HOOK: Optional[Callable[[torch.Tensor, str], torch.Tensor]] = None
+
+
+def set_constrain_hook(
+        fn: Optional[Callable[[torch.Tensor, str], torch.Tensor]]) -> None:
+    global _CONSTRAIN_HOOK
+    _CONSTRAIN_HOOK = fn
+
+
 def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
-    """Activation-sharding hook: the identity until meshes are ported
-    (ROADMAP item 12)."""
-    return x
+    """``x`` through the installed activation-sharding hook under the
+    logical name ``name`` (``"btd"``, ``"expert_in"``); the identity when no
+    hook is installed."""
+    if _CONSTRAIN_HOOK is None:
+        return x
+    return _CONSTRAIN_HOOK(x, name)
 
 
 # ---------------------------------------------------------------------------

@@ -112,12 +112,15 @@ def moe_forward_einsum(p: Params, cfg: ArchConfig, x: torch.Tensor,
     combine = torch.einsum("gtke,gtkc->gtec", mask * gate[..., None], pos_oh)
 
     ddt = getattr(torch, cfg.moe_dispatch_dtype)
-    xin = torch.einsum("gtec,gtd->gecd", dispatch.to(ddt),
-                       xg.to(ddt)).to(cfg.dtype)
+    # To experts: (G, E, C, D), expert-major (an all-to-all under a mesh
+    # whose hook shards the expert axis).
+    xin = torch.einsum("gtec,gtd->gecd", dispatch.to(ddt), xg.to(ddt))
+    xin = cm.constrain(xin.to(cfg.dtype), "expert_in")
 
     h = torch.einsum("gecd,edf->gecf", xin, p["w_gate"])
     u = torch.einsum("gecd,edf->gecf", xin, p["w_up"])
     out_e = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"])
+    out_e = cm.constrain(out_e, "expert_in")
 
     out = torch.einsum("gtec,gecd->gtd", combine.to(ddt), out_e.to(ddt))
     return out.reshape(b, s, d).to(x.dtype), aux

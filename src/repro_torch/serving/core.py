@@ -1,6 +1,5 @@
 """The fleet-serving core behind ``StreamEngine`` and
-``GroupedStreamEngine``: the single-device path of ``repro.serving.core`` in
-PyTorch.
+``GroupedStreamEngine``: ``repro.serving.core`` in PyTorch.
 
 **The unit model.**  A serving core drives a list of *units*: contiguous
 stream-axis slices, each with its own model, detector head, window geometry,
@@ -14,7 +13,7 @@ the forward and the head's device epilogue.
 **The ring arena** of each unit is one tensor preallocated on the device and
 updated in place, the counterpart of the reference's donated
 ``donate_argnums=(0, 1, 2)`` step (the ring and the adaptation state are
-never reallocated).  Units that share ``(n_streams, window)`` keep their
+never reallocated).  Units that share ``(s_pad, window)`` keep their
 rings as views of one ``(G, S, W, F)`` arena, so the megakernel step writes
 and unrolls them in one batched op.  Readings accumulate on the host between
 cadences and are uploaded once per step, so a stride-10 fleet touches the
@@ -29,7 +28,7 @@ device once per verdict cadence.
 packs (``ops.grouped_fuse_reason``: all-Dense, one weight dtype per layer
 position, the grouped kernel's shared-memory bill within Hopper's) and every
 head exposes an in-kernel epilogue (``DetectorHead.kernel_epilogue``), a
-step whose co-firing units share ``(n_streams, window)`` and block length is
+step whose co-firing units share ``(s_pad, window)`` and block length is
 ONE ``grouped_fused_mlp`` launch: the units' arena is scattered and unrolled
 batched over the group axis, and ``ops.grouped_apply`` runs the whole fleet
 — per-group quantization, activations (a final softmax masked to each
@@ -51,8 +50,30 @@ in-flight step.  ``latency_s`` is dispatch→harvest time; ``stats.steps``
 counts at dispatch, ``windows``/``deadline_misses``/``latencies_s`` at
 harvest, and ``wall_s`` is host time inside ``ingest()``/``flush()`` only.
 
-Fleet meshes (stream and model sharding) are not ported yet (ROADMAP item
-12).
+**Fleet meshes.**  One process per rank, the stream axis over the ``"data"``
+axis of a :class:`~torch.distributed.device_mesh.DeviceMesh`
+(``launch.mesh.make_fleet_mesh``) and, on a 2-D ``("data", "model")`` mesh,
+wide Dense layers column-sharded over ``"model"``.  Every rank is given the
+whole fleet's readings, as the reference's host holds them; it keeps only
+its contiguous shard of every unit's streams (rows ``[shard * rows, (shard +
+1) * rows)`` of the unit padded to ``s_pad = ceil(n / shards) * shards``,
+the *pad-stream contract*: pad rows are zero streams that ride through the
+step and never surface) and runs its shard of every ready unit's step.  A
+layer whose output is at least ``MODEL_SHARD_MIN_WIDTH`` wide keeps only this
+model rank's ``nc`` columns (weights, bias and per-channel scales, padded
+with zero columns and scale 1.0 to ``m * nc``): each rank computes the
+full-K dot of its columns and one gather over the ``"model"`` group rebuilds
+the row, so every column is the unsharded layer's own arithmetic.  Those
+gathers are the only collectives inside a step.  After it, ONE gather over
+the ``"data"`` group brings every rank the whole fleet's outputs (and the
+adaptive units' calibration state), the counterpart of the reference's
+``device_get`` of a sharded array, and every rank builds the same verdict
+list in the reference's stream order.  ``stats.collectives`` counts both
+kinds of gather by axis.  The fused kernel cannot span the model gather, so
+``fused=None`` serves per layer on a model-sharded mesh and ``fused=True``
+raises; the megakernel is off under a mesh unless ``megakernel=True``.  A
+rank outside the mesh (a mesh takes a prefix of the world) holds no shard:
+its ``ingest`` counts the cycle and returns ``[]``.
 """
 
 from __future__ import annotations
@@ -64,17 +85,28 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs import msf_detector as spec
 from repro_torch.core.layers import ACTIVATIONS, Dense, Input
 from repro_torch.core.model import Model, ParamTree
 from repro_torch.device import Device, resolve_device, to_device
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.sim.heads import (ClassifierHead, DetectorHead, ForecastHead,
                                    ScoreHead)
 
-NOT_PORTED_MESH = ("fleet meshes (stream and model sharding) are not ported "
-                   "to PyTorch yet (ROADMAP item 12)")
+# Column-shard a Dense layer over the mesh's "model" axis only when its
+# output is at least this wide: below it the gather costs more than the
+# sharded columns save (the detector's 2-wide logit layer is the extreme
+# case), so the §7 detector runs exactly one model gather a step.
+MODEL_SHARD_MIN_WIDTH = 64
+
+# The gather that concatenates every rank's tensor along dim 0 (torch 2.13
+# renamed all_gather_into_tensor).
+_all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
 
 
 @dataclasses.dataclass
@@ -173,7 +205,8 @@ class StreamStats:
     for the others).  ``dispatches == steps`` is the one-launch-per-step
     guarantee of a packed fleet.  Under ``async_depth=1``
     ``steps`` counts at dispatch and ``windows``/``deadline_misses``/
-    ``latencies_s`` at harvest.
+    ``latencies_s`` at harvest.  ``dispatches`` and ``collectives`` count
+    this rank's own.
     """
 
     steps: int                       # detector steps executed
@@ -184,6 +217,10 @@ class StreamStats:
     dispatches: int = 0              # forward launches issued
     latencies_s: LatencyReservoir = dataclasses.field(
         default_factory=LatencyReservoir)
+    # gathers by mesh axis: one "data" gather a step under a mesh, one
+    # "model" gather per column-sharded layer a step
+    collectives: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"model": 0, "data": 0})
 
     def latency_p(self, q: float) -> float:
         return self.latencies_s.percentile(q)
@@ -284,6 +321,71 @@ def _dense_batched(x: torch.Tensor, p: Dict, act: str,
     return ACTIVATIONS[act](y)
 
 
+def _pad_layer_cols(p: Dict, n_pad: int) -> Dict:
+    """A Dense layer's params with the output columns padded to ``n_pad``,
+    so every model rank owns an equal column slice.  Bias and per-channel
+    weight scales become per-column vectors, padded alongside (pad scale 1.0,
+    so every stored scale decodes some grid); pad columns are sliced off
+    after the gather and never surface."""
+    wkey = "qw" if "qw" in p else "w"
+    n = p[wkey].shape[1]
+    q = dict(p)
+    q[wkey] = torch.nn.functional.pad(p[wkey], (0, n_pad - n))
+    if "b" in p:
+        q["b"] = torch.nn.functional.pad(
+            torch.broadcast_to(p["b"].to(torch.float32), (n,)), (0, n_pad - n))
+    if "w_scale" in p:
+        q["w_scale"] = torch.nn.functional.pad(
+            torch.broadcast_to(p["w_scale"].to(torch.float32), (n,)),
+            (0, n_pad - n), value=1.0)
+    return q
+
+
+def _model_shard_plan(stack, model_shards: int, model_rank: int):
+    """Per layer: ``(params, act, cols_per_rank | None, true_width)``.
+
+    A layer at least ``MODEL_SHARD_MIN_WIDTH`` wide keeps only model rank
+    ``model_rank``'s ``cols_per_rank`` columns of its padded params; the
+    others (and a softmax, which is not column-wise) stay whole."""
+    plan = []
+    for p, act in stack:
+        n_out = int((p["qw"] if "qw" in p else p["w"]).shape[1])
+        if (model_shards > 1 and n_out >= MODEL_SHARD_MIN_WIDTH
+                and act != "softmax"):
+            nc = -(-n_out // model_shards)
+            cols = slice(model_rank * nc, (model_rank + 1) * nc)
+            padded = _pad_layer_cols(p, nc * model_shards)
+            own = {k: (v[:, cols] if k in ("w", "qw") else
+                       v[cols] if k in ("b", "w_scale") else v).contiguous()
+                   for k, v in padded.items()}
+            plan.append((own, act, nc, n_out))
+        else:
+            plan.append((p, act, None, n_out))
+    return plan
+
+
+def _gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` (``size`` ranks), concatenated
+    along dim 0 in group-rank order."""
+    out = torch.empty((size * t.shape[0],) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    _all_gather(out, t.contiguous(), group=group)
+    return out
+
+
+def _dense_model_sharded(x: torch.Tensor, p: Dict, act: str, backend: str,
+                         nc: int, n_out: int, group,
+                         model_shards: int) -> torch.Tensor:
+    """One Dense layer column-sharded over the ``"model"`` group: this
+    rank's ``nc`` columns (``p`` holds only them) through the unsharded
+    layer's own arithmetic, then one gather rebuilds the ``(M, n_out)``
+    activation."""
+    y = _dense_batched(x, p, act, backend)
+    cols = _gather(y, group, model_shards).view(model_shards, *y.shape)
+    return cols.permute(1, 0, 2).reshape(y.shape[0], -1)[:, :n_out] \
+        .contiguous()
+
+
 @dataclasses.dataclass
 class ServingUnit:
     """One detector population inside a serving core.
@@ -307,10 +409,11 @@ class ServingUnit:
 class _UnitState:
     """Per-unit serving state: geometry, step body, ring bookkeeping."""
 
-    __slots__ = ("name", "head", "window", "offset", "n_streams", "body",
-                 "pos", "consumed", "use_fused", "windows", "adapt",
-                 "live_threshold", "fires", "dispatch_cost", "stack",
-                 "kernel_epi", "fused_knob", "all_dense")
+    __slots__ = ("name", "head", "window", "offset", "n_streams", "s_pad",
+                 "rows", "row0", "body", "pos", "consumed", "use_fused",
+                 "windows", "adapt", "live_threshold", "fires",
+                 "dispatch_cost", "model_gathers", "stack", "kernel_epi",
+                 "fused_knob", "all_dense")
 
     def __init__(self, name, head, window, offset, n_streams):
         self.name = name
@@ -329,18 +432,24 @@ class _InFlight:
     host: the device-to-host copies are queued right after the step, and
     ``done`` marks their completion on the stream.  ``unpack`` turns the
     host copies into one array per ready unit (the identity for per-group
-    steps; a mega step slices each unit's payload out of one tensor)."""
+    steps; a mega step slices each unit's payload out of one tensor).
+    ``states`` holds, under a mesh, the gathered calibration state
+    ``(calib, counts)`` of each adaptive ready unit, by unit index."""
 
-    __slots__ = ("key", "outs", "cycle", "t0", "done", "unpack")
+    __slots__ = ("key", "outs", "states", "cycle", "t0", "done", "unpack")
 
     def __init__(self, key, outs: Sequence[torch.Tensor], cycle, t0,
                  unpack: Callable[[List[np.ndarray]], List[np.ndarray]]
-                 = lambda hosts: hosts):
+                 = lambda hosts: hosts,
+                 states: Optional[Dict[int, Tuple[torch.Tensor,
+                                                  torch.Tensor]]] = None):
         self.key = key                # ((unit index, block length), ...)
         self.cycle = cycle            # boundary cycle the windows completed at
         self.t0 = t0                  # dispatch wall-clock (latency origin)
         self.unpack = unpack
         self.outs = [o.to("cpu", non_blocking=True) for o in outs]
+        self.states = {gi: tuple(t.to("cpu", non_blocking=True) for t in st)
+                       for gi, st in (states or {}).items()}
         self.done = None
         if any(o.is_cuda for o in outs):
             self.done = torch.cuda.Event()
@@ -402,7 +511,9 @@ class ServingCore:
     The machinery layer — see the module docstring for the serving model
     and :class:`~repro_torch.serving.streams.StreamEngine` for the public
     constructor contract.  ``device`` defaults to the card and raises on a
-    machine without CUDA; params must already live there.
+    machine without CUDA; params must already live there.  Under a mesh,
+    ``device`` is this rank's (its current card by default) and must be of
+    the mesh's device type.
     """
 
     def __init__(self, units: Sequence[ServingUnit], *,
@@ -412,12 +523,11 @@ class ServingCore:
                  norm_mean: Sequence[float] = spec.NORM_MEAN,
                  norm_std: Sequence[float] = spec.NORM_STD,
                  backend: str = "auto",
-                 mesh: Any = None,
+                 shard: Optional[bool] = None,
+                 mesh: Optional[DeviceMesh] = None,
                  async_depth: int = 0,
                  megakernel: Optional[bool] = None,
                  device: Device = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(NOT_PORTED_MESH)
         if not units:
             raise ValueError("need at least one serving unit")
         if any(u.n_streams < 1 for u in units):
@@ -444,6 +554,7 @@ class ServingCore:
                              "feature")
         self._backend = backend
         self.n_streams = sum(u.n_streams for u in units)
+        self._init_mesh(shard, mesh, units)
 
         self._units: List[_UnitState] = []
         self._rings: List[torch.Tensor] = []
@@ -476,8 +587,20 @@ class ServingCore:
                     "the model graph has non-Dense nodes"
                 raise ValueError(
                     f"{u.what}fused=True but the model cannot fuse: {reason}")
-            use_fused = fusable if u.fused is None else u.fused
+            if u.fused and self.model_shards > 1:
+                raise ValueError(
+                    f"{u.what}fused=True cannot serve on a model-sharded "
+                    "mesh: the gather between column-sharded layers cannot "
+                    "live inside one fused_mlp launch — use fused=None/"
+                    "False, or a mesh with model_shards=1")
+            use_fused = ((fusable and self.model_shards == 1)
+                         if u.fused is None else u.fused)
             st = _UnitState(u.name, head, window, offset, u.n_streams)
+            # Pad-stream contract: each data shard owns `rows` contiguous
+            # rows of the unit padded to s_pad; pad rows are zero streams.
+            st.s_pad = -(-u.n_streams // self.n_shards) * self.n_shards
+            st.rows = st.s_pad // self.n_shards
+            st.row0 = self._shard * st.rows
             st.use_fused = use_fused
             st.stack = stack
             st.kernel_epi = head.kernel_epilogue()
@@ -488,8 +611,8 @@ class ServingCore:
             st.adapt = _resolve_adapt(u.adapt, head, what=u.what)
             st.live_threshold = (head.threshold
                                  if isinstance(head, ScoreHead) else None)
-            st.body = self._make_body(stack, head, use_fused, window,
-                                      st.adapt)
+            st.body, st.model_gathers = self._make_body(
+                stack, head, use_fused, window, st.adapt)
             self._units.append(st)
             calib, counts = self._calib_state(st)
             self._calibs.append(calib)
@@ -497,17 +620,19 @@ class ServingCore:
             offset += u.n_streams
         self.max_window = max(st.window for st in self._units)
 
-        # Ring arenas: units of equal (n_streams, window) keep their rings as
-        # views of one (G, S, W, F) tensor, keyed by the member unit indices.
-        # Such units always fire together (readiness depends on the window
-        # only), so a stackable ready subset is exactly one arena.
+        # Ring arenas: units of equal (s_pad, window) keep their rings (this
+        # rank's rows) as views of one (G, rows, W, F) tensor, keyed by the
+        # member unit indices.  Such units always fire together (readiness
+        # depends on the window only), so a stackable ready subset is
+        # exactly one arena.
         members: Dict[Tuple[int, int], List[int]] = {}
         for gi, st in enumerate(self._units):
-            members.setdefault((st.n_streams, st.window), []).append(gi)
+            members.setdefault((st.s_pad, st.window), []).append(gi)
         self._arenas: Dict[Tuple[int, ...], torch.Tensor] = {}
         self._rings = [None] * len(self._units)
-        for (n_streams, window), gis in members.items():
-            arena = torch.zeros((len(gis), n_streams, window, n_features),
+        for (s_pad, window), gis in members.items():
+            arena = torch.zeros((len(gis), s_pad // self.n_shards, window,
+                                 n_features),
                                 dtype=torch.float32, device=self.device)
             self._arenas[tuple(gis)] = arena
             for k, gi in enumerate(gis):
@@ -523,7 +648,12 @@ class ServingCore:
             raise ValueError(
                 "megakernel=True but the fleet cannot pack into one launch: "
                 f"{self._mega_reason}")
-        self._mega = self._mega_reason is None and megakernel is not False
+        # On by default only without a mesh, as the reference's (whose
+        # sharded per-group step rounds differently from its sharded mega
+        # step); megakernel=True serves a mesh's shards through it.
+        self._mega = (self._mega_reason is None
+                      and (megakernel is True
+                           or (megakernel is None and self.mesh is None)))
 
         self._count = 0
         self._pending: List[np.ndarray] = []
@@ -531,6 +661,53 @@ class ServingCore:
         self.last_outputs: Dict[Optional[str], np.ndarray] = {}
         self.stats = StreamStats(steps=0, cycles=0, windows=0,
                                  deadline_misses=0, wall_s=0.0)
+
+    def _init_mesh(self, shard: Optional[bool], mesh: Optional[DeviceMesh],
+                   units: Sequence[ServingUnit]) -> None:
+        """Resolve ``shard``/``mesh`` (the reference's contract) and this
+        rank's place in the mesh: its data shard, its model rank and the
+        groups it gathers over."""
+        if shard is False and mesh is not None:
+            raise ValueError("shard=False contradicts an explicit mesh")
+        world = (dist.get_world_size()
+                 if dist.is_available() and dist.is_initialized() else 1)
+        if mesh is None and (shard or (shard is None and world > 1)):
+            # Never wider than the smallest unit: pure-pad shards would
+            # launch a step per rank on zero streams every cadence.  Raises
+            # without a process group.
+            mesh = make_fleet_mesh(min(world, *(u.n_streams for u in units)),
+                                   device_type=self.device.type)
+        self.mesh = mesh
+        self.n_shards = self.model_shards = 1
+        self._shard, self._in_mesh = 0, True
+        self._data_group = self._model_group = None
+        self._model_rank = 0
+        if mesh is None:
+            return
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        if "data" not in names:
+            raise ValueError(f"fleet mesh needs a 'data' axis, got {names}")
+        extra = [a for a in names if a not in ("data", "model")
+                 and mesh.size(names.index(a)) != 1]
+        if extra:
+            raise ValueError(
+                f"non-'data' mesh axes must have size 1, got {extra} "
+                "(weight sharding lives on the 'model' axis)")
+        if mesh.device_type != self.device.type:
+            raise ValueError(
+                f"the mesh serves on {mesh.device_type!r} but the engine's "
+                f"device is {self.device}")
+        self.n_shards = mesh.size(names.index("data"))
+        if "model" in names:
+            self.model_shards = mesh.size(names.index("model"))
+        self._in_mesh = mesh.get_coordinate() is not None
+        if not self._in_mesh:
+            return
+        self._shard = mesh.get_local_rank("data")
+        self._data_group = mesh.get_group("data")
+        if self.model_shards > 1:
+            self._model_rank = mesh.get_local_rank("model")
+            self._model_group = mesh.get_group("model")
 
     @property
     def mega_reason(self) -> Optional[str]:
@@ -547,8 +724,7 @@ class ServingCore:
         adapt."""
         if st.adapt is None:
             return None, None
-        return st.head.calib_state(st.n_streams, st.adapt.capacity,
-                                   self.device)
+        return st.head.calib_state(st.rows, st.adapt.capacity, self.device)
 
     @staticmethod
     def _thr(st: _UnitState) -> float:
@@ -557,22 +733,28 @@ class ServingCore:
         return 0.0 if st.live_threshold is None else float(st.live_threshold)
 
     def _make_body(self, stack, head, use_fused, window, adapt_cfg):
-        """One unit's device step: ring scatter, oldest-first unroll, the
-        head's ``prepare`` view, the forward, the head's device epilogue
-        and, when the unit adapts, the rolling calibration-state write.
-        Ring and calibration state are updated in place."""
+        """One unit's device step on this rank's rows: ring scatter,
+        oldest-first unroll, the head's ``prepare`` view, the forward (its
+        column-sharded layers each end in a model gather), the head's device
+        epilogue and, when the unit adapts, the rolling calibration-state
+        write.  Ring and calibration state are updated in place.  Returns
+        (body, model gathers a step)."""
         backend = self._backend
         w = window
         # Laid out for the kernel once: the launch descriptor carries the
         # activation scales by value, read from the device here and never
         # again on the serving path.
         fused = ops.prepare_fused(stack) if use_fused else None
+        plan = _model_shard_plan(stack, self.model_shards, self._model_rank)
+        group, m = self._model_group, self.model_shards
 
         def forward(x):
             if fused is not None:
                 return ops.fused_forward(x, fused, backend=backend)
-            for p, act in stack:
-                x = _dense_batched(x, p, act, backend)
+            for p, act, nc, n_out in plan:
+                x = (_dense_batched(x, p, act, backend) if nc is None else
+                     _dense_model_sharded(x, p, act, backend, nc, n_out,
+                                          group, m))
             return x
 
         def body(ring, calib, counts, block, pos, thr):
@@ -592,7 +774,21 @@ class ServingCore:
                 head.calib_update(calib, counts, out, thr, adapt_cfg.headroom)
             return out
 
-        return body
+        gathers = 0 if fused is not None else sum(
+            nc is not None for _, _, nc, _ in plan)
+        return body, gathers
+
+    def _single_step_view(self) -> Callable:
+        """Unit 0's step on state the caller passes, in the reference's
+        single-model signatures: ``(ring, block, pos) -> out`` without
+        adaptation, ``(ring, calib, counts, block, pos, thr) -> out`` with
+        (the state is updated in place).  Under a mesh a rank passes its
+        shard's rows, and the model gathers run inside."""
+        body = self._units[0].body
+        if self._units[0].adapt is not None:
+            return body
+        return lambda ring, block, pos: body(ring, None, None, block, pos,
+                                             0.0)
 
     # -- megakernel: the whole ready fleet in ONE launch ------------------
 
@@ -604,6 +800,9 @@ class ServingCore:
         if len(self._units) < 2:
             return ("fleet has a single unit; its step is already one "
                     "launch")
+        if self.model_shards > 1:
+            return ("the megakernel cannot span the model-axis gather of "
+                    "column-sharded layers")
         for st in self._units:
             what = f"group {st.name!r}: " if st.name else ""
             if st.fused_knob is False:
@@ -635,11 +834,12 @@ class ServingCore:
     def _mega_applicable(self, key: Tuple) -> bool:
         """True when THIS ready-combination runs as one launch: the engine
         packs, more than one unit co-fired, and the co-firing units agree on
-        (streams, window, block length), so one arena holds them all."""
+        (padded streams, window, block length), so one arena holds them
+        all."""
         if not self._mega or len(key) < 2:
             return False
         sts = [self._units[gi] for gi, _ in key]
-        return (len({(st.n_streams, st.window) for st in sts}) == 1
+        return (len({(st.s_pad, st.window) for st in sts}) == 1
                 and len({length for _, length in key}) == 1)
 
     def _mega_pack(self, subset: Tuple[int, ...]) -> _MegaPack:
@@ -654,7 +854,7 @@ class ServingCore:
         plan, arrays = ops.build_grouped_plan(
             [st.stack for st in sts], kinds,
             k0=max(st.window * self.n_features for st in sts))
-        tgt = torch.zeros((len(sts), sts[0].n_streams, plan.n_out),
+        tgt = torch.zeros((len(sts), sts[0].rows, plan.n_out),
                           dtype=torch.float32, device=self.device)
         for k, st in enumerate(sts):
             if st.kernel_epi[1] == "center":
@@ -669,7 +869,7 @@ class ServingCore:
             None if st.adapt is None else
             (type(st.head).calib_update, st.adapt.capacity,
              st.adapt.headroom) for st in sts)
-        sig = (plan, tuple((st.n_streams, st.window) for st in sts),
+        sig = (plan, tuple((st.s_pad, st.window) for st in sts),
                tuple(st.kernel_epi for st in sts), adapt_sig)
         pack = _MegaPack(
             plan=plan, arrays=arrays,
@@ -746,7 +946,7 @@ class ServingCore:
         blocks, poss = [], set()
         for st in sts:
             span = self._count - st.consumed
-            blocks.append(full[st.offset:st.offset + st.n_streams])
+            blocks.append(self._shard_block(full, st))
             poss.add((st.pos + (span - length)) % st.window)
             st.pos = (st.pos + span) % st.window
             st.consumed = self._count
@@ -768,7 +968,7 @@ class ServingCore:
         step, pack = self._get_mega_step(subset, length)
         sts = [self._units[gi] for gi in subset]
         states = [self._calib_state(st) for st in sts]
-        block = torch.zeros((len(sts), sts[0].n_streams, length,
+        block = torch.zeros((len(sts), sts[0].rows, length,
                              self.n_features), dtype=torch.float32,
                             device=self.device)
         return step, (torch.zeros_like(self._arenas[subset]),
@@ -803,7 +1003,12 @@ class ServingCore:
         kernels, and warms the allocator and the libraries the step uses.
         Serving state is left untouched.  Routing mirrors :meth:`ingest`:
         stackable multi-unit keys run the mega step, the others each ready
-        unit's step."""
+        unit's step.  Under a mesh each rank runs its shard's shapes (their
+        model gathers included, every rank of the mesh in the same order)
+        and one data gather, which sets up the communicator; the warmup's
+        gathers are not counted."""
+        if not self._in_mesh:
+            return
         for key in self._schedule_keys():
             if self._mega_applicable(key):
                 step, args = self._mega_example_args(key)
@@ -813,9 +1018,12 @@ class ServingCore:
                 st = self._units[gi]
                 ring = torch.zeros_like(self._rings[gi])
                 calib, counts = self._calib_state(st)
-                block = torch.zeros((st.n_streams, length, self.n_features),
+                block = torch.zeros((st.rows, length, self.n_features),
                                     dtype=torch.float32, device=self.device)
                 st.body(ring, calib, counts, block, 0, self._thr(st))
+        if self.mesh is not None:
+            _gather(torch.zeros((1,), device=self.device), self._data_group,
+                    self.n_shards)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -836,6 +1044,9 @@ class ServingCore:
             raise ValueError(
                 f"expected ({self.n_streams}, {self.n_features}) readings, "
                 f"got {readings.shape}")
+        if not self._in_mesh:
+            self.stats.cycles += 1
+            return []
         self._pending.append((readings - self._mean) / self._std)
         # Readings older than the last `max_window` can never land in any
         # ring: drop them here so host memory and uploads stay capped.
@@ -861,9 +1072,13 @@ class ServingCore:
             payload, pack = self._dispatch_mega(mega_key)
             self.stats.dispatches += 1
             self.stats.steps += 1
-            flight = _InFlight(mega_key, [payload], self._count - 1, t0,
-                               pack.unpack)
-            return self._land(flight, verdicts, t0)
+            if self.mesh is None:
+                flight = _InFlight(mega_key, [payload], self._count - 1, t0,
+                                   pack.unpack)
+                return self._land(flight, verdicts, t0)
+            outs = [payload[k, :, :w] for k, w in enumerate(pack.widths)]
+            return self._land(self._gathered(mega_key, outs, t0), verdicts,
+                              t0)
 
         key, outs = [], []
         for gi, st in ready:
@@ -871,8 +1086,8 @@ class ServingCore:
             # holds at least the last min(span, window) readings.
             span = self._count - st.consumed
             length = min(span, st.window)
-            block = np.stack(self._pending[-length:], axis=1)     # (S, L, F)
-            block = block[st.offset:st.offset + st.n_streams]
+            block = self._shard_block(
+                np.stack(self._pending[-length:], axis=1), st)  # (rows, L, F)
             # The ring write always ends at (pos + span - 1) mod window;
             # host-side trimming of long spans shifts the start to match.
             eff_pos = (st.pos + (span - length)) % st.window
@@ -885,9 +1100,53 @@ class ServingCore:
             st.consumed = self._count
             st.fires += 1
             self.stats.dispatches += st.dispatch_cost
+            self.stats.collectives["model"] += st.model_gathers
         self.stats.steps += 1
-        flight = _InFlight(tuple(key), outs, self._count - 1, t0)
+        if self.mesh is None:
+            flight = _InFlight(tuple(key), outs, self._count - 1, t0)
+        else:
+            flight = self._gathered(tuple(key), outs, t0)
         return self._land(flight, verdicts, t0)
+
+    def _shard_block(self, full: np.ndarray, st: _UnitState) -> np.ndarray:
+        """This rank's rows of a unit's pending block: the unit's streams
+        ``[row0, row0 + rows)`` of ``full`` (the fleet's ``(streams, L,
+        F)``), zero pad streams past the unit's end."""
+        lo = min(st.row0, st.n_streams)
+        hi = min(st.row0 + st.rows, st.n_streams)
+        block = full[st.offset + lo:st.offset + hi]
+        if hi - lo < st.rows:
+            block = np.pad(block, ((0, st.rows - (hi - lo)), (0, 0), (0, 0)))
+        return block
+
+    def _gathered(self, key: Tuple, outs: Sequence[torch.Tensor],
+                  t0: float) -> _InFlight:
+        """A mesh step's flight: ONE gather over the ``"data"`` group of
+        this rank's rows of every ready unit's outputs and of the adaptive
+        units' calibration state, each then cut to the unit's real
+        streams."""
+        parts = list(outs)
+        adaptive = [gi for gi, _ in key if self._units[gi].adapt is not None]
+        for gi in adaptive:
+            parts += [self._calibs[gi], self._counts[gi].to(torch.float32)]
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        full = _gather(flat, self._data_group, self.n_shards) \
+            .view(self.n_shards, -1)
+        self.stats.collectives["data"] += 1
+        cut, at = [], 0
+        # Each part holds its unit's rows: parts follow key's order, then
+        # the adaptive units' (calib, counts) pairs.
+        owners = [gi for gi, _ in key] + [gi for gi in adaptive
+                                          for _ in range(2)]
+        for gi, p in zip(owners, parts):
+            n = p.numel()
+            rows = full[:, at:at + n].reshape((-1,) + tuple(p.shape[1:]))
+            cut.append(rows[:self._units[gi].n_streams])
+            at += n
+        outs, rest = cut[:len(key)], cut[len(key):]
+        states = {gi: (rest[2 * k], rest[2 * k + 1].to(torch.int32))
+                  for k, gi in enumerate(adaptive)}
+        return _InFlight(key, outs, self._count - 1, t0, states=states)
 
     def _land(self, flight: _InFlight, verdicts: List[Verdict],
               t0: float) -> List[Verdict]:
@@ -925,10 +1184,13 @@ class ServingCore:
             # runs before the NEXT dispatch, so the state read here is
             # exactly this step's.
             if st.adapt is not None and st.fires % st.adapt.every == 0:
+                calib, counts = (
+                    (t.numpy() for t in flight.states[gi])
+                    if gi in flight.states else
+                    (self._calibs[gi].cpu().numpy(),
+                     self._counts[gi].cpu().numpy()))
                 thr = st.head.streaming_threshold(
-                    self._calibs[gi].cpu().numpy(),
-                    self._counts[gi].cpu().numpy(),
-                    min_count=st.adapt.min_count)
+                    calib, counts, min_count=st.adapt.min_count)
                 if thr is not None:
                     st.live_threshold = thr
             pred, prob, score, thr = st.head.host_verdicts(

@@ -1,6 +1,6 @@
 """Heterogeneous model-group fleet serving: many detectors, one engine.
 
-The counterpart of ``repro.serving.grouped`` on one device.  A fleet's
+The counterpart of ``repro.serving.grouped``.  A fleet's
 stream axis is partitioned into contiguous **model groups**
 (:class:`ModelGroup`), each with its own model, detector head (and
 calibrated threshold), §6.1 quantization scales, fused/per-layer flavor and
@@ -19,18 +19,27 @@ windows differ fire on their own cadences and serve per group at the
 boundaries where they cannot stack.  ``async_depth=1`` double-buffers the
 whole step (verdicts bit-match sync mode one ready boundary later; drain
 with ``flush()``).  ``Verdict.group`` names the group of each verdict.
+
+**Sharding** composes per group: under the ``"data"`` axis of a fleet mesh
+each group's arena is padded to the mesh (its own pad-stream contract) and
+every rank serves its contiguous shard of every group; a ``("data",
+"model")`` mesh also column-shards each group's wide layers (see
+``serving/core.py``).  The megakernel stays off under a mesh unless
+``megakernel=True``, which runs each rank's shard of the fleet as one
+``grouped_fused_mlp`` launch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs import msf_detector as spec
 from repro_torch.core.model import Model, ParamTree
 from repro_torch.device import Device
-from repro_torch.serving.core import (NOT_PORTED_MESH, AdaptConfig,
-                                      ServingCore, ServingUnit)
+from repro_torch.serving.core import AdaptConfig, ServingCore, ServingUnit
 from repro_torch.sim.heads import DetectorHead
 
 __all__ = ["GroupedStreamEngine", "ModelGroup"]
@@ -67,10 +76,12 @@ class GroupedStreamEngine(ServingCore):
     group's params must live there.  Without a card the default raises;
     pass ``device="cpu"`` for the plain PyTorch path.  ``backend`` follows
     ``kernels.ops``.  ``megakernel``: None packs the fleet into one launch
-    per step when it can, False pins the per-group path, True raises when
-    the fleet cannot pack (:attr:`mega_reason` says why).  ``shard=None`` /
-    ``False`` serve on one device; ``shard=True`` and ``mesh`` raise
-    ``NotImplementedError``: fleet meshes are not ported yet.
+    per step when it can and the engine is unsharded, False pins the
+    per-group path, True forces it (sharded steps included) and raises when
+    the fleet cannot pack (:attr:`mega_reason` says why).  ``shard`` and
+    ``mesh`` follow the ``StreamEngine`` contract; the auto mesh is never
+    wider than the smallest group, and a wider explicit mesh still serves
+    through each group's pad-stream contract.
     """
 
     def __init__(self, groups: Sequence[ModelGroup], *,
@@ -81,12 +92,10 @@ class GroupedStreamEngine(ServingCore):
                  norm_std: Sequence[float] = spec.NORM_STD,
                  backend: str = "auto",
                  shard: Optional[bool] = None,
-                 mesh: Any = None,
+                 mesh: Optional[DeviceMesh] = None,
                  async_depth: int = 0,
                  megakernel: Optional[bool] = None,
                  device: Device = "cuda"):
-        if shard:
-            raise NotImplementedError(NOT_PORTED_MESH)
         if not groups:
             raise ValueError("need at least one ModelGroup")
         names = [g.name for g in groups]
@@ -99,8 +108,8 @@ class GroupedStreamEngine(ServingCore):
              for g in groups],
             n_features=n_features, stride=stride, deadline_s=deadline_s,
             norm_mean=norm_mean, norm_std=norm_std, backend=backend,
-            mesh=mesh, async_depth=async_depth, megakernel=megakernel,
-            device=device)
+            shard=shard, mesh=mesh, async_depth=async_depth,
+            megakernel=megakernel, device=device)
 
     @property
     def groups(self) -> List[Tuple[str, int, int]]:

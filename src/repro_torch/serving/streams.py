@@ -10,16 +10,28 @@ launch per verdict step; with ``fused=False`` it is one launch per layer
 (``qmatmul`` for SINT layers).
 
 This is the one-model façade over :class:`~repro_torch.serving.core.
-ServingCore`, the counterpart of ``repro.serving.streams.StreamEngine`` on a
-single device (fleet meshes are not ported yet; a fleet of different models
-is ``GroupedStreamEngine``).
+ServingCore`, the counterpart of ``repro.serving.streams.StreamEngine`` (a
+fleet of different models is ``GroupedStreamEngine``).
+
+**Fleet sharding.**  Under a ``torch.distributed`` fleet mesh
+(``launch.mesh.make_fleet_mesh``; one process per rank) every rank ingests
+the whole fleet's readings, keeps its contiguous shard of the streams over
+the ``"data"`` axis and runs the step on it (the fused kernel included, one
+launch per rank per step); one gather over ``"data"`` a step gives every
+rank the whole fleet's outputs, and every rank returns the same verdicts.
+A ``("data", "model")`` mesh also column-shards wide Dense layers, one
+gather over ``"model"`` each (see ``serving/core.py``).  Fleets that do not
+divide by the data width are padded with zero streams that never surface
+(the pad-stream contract).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
+import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs import msf_detector as spec
 from repro_torch.core.model import Model, ParamTree
@@ -53,8 +65,16 @@ class StreamEngine(ServingCore):
     autoencoder, and ``last_logits`` then holds the (n_streams, 1) scores).
     ``adapt`` turns on streaming threshold recalibration for a calibrated
     score head.  ``async_depth=1`` double-buffers: verdicts bit-match sync
-    mode, one ready boundary later; drain with :meth:`flush`.  ``mesh``
-    raises ``NotImplementedError``: fleet meshes are not ported yet.
+    mode, one ready boundary later; drain with :meth:`flush`.
+
+    ``shard``/``mesh`` control fleet sharding (module docstring):
+    ``shard=None`` shards when the default process group has more than one
+    rank, ``shard=True`` forces it (a one-rank mesh still takes the sharded
+    path, and a process with no group raises), ``shard=False`` pins the
+    unsharded step.  ``mesh`` is a ``DeviceMesh`` whose ``"data"`` axis
+    carries the streams; a ``"model"`` axis of any size column-shards wide
+    layers, other axes must have size 1.  It defaults to
+    ``make_fleet_mesh()`` over the ranks, never wider than the fleet.
     """
 
     def __init__(self, model: Model, params: ParamTree, *,
@@ -68,7 +88,8 @@ class StreamEngine(ServingCore):
                  backend: str = "auto",
                  fused: Optional[bool] = None,
                  head: Optional[DetectorHead] = None,
-                 mesh: Any = None,
+                 shard: Optional[bool] = None,
+                 mesh: Optional[DeviceMesh] = None,
                  adapt: Union[bool, AdaptConfig, None] = None,
                  async_depth: int = 0,
                  device: Device = "cuda"):
@@ -78,7 +99,7 @@ class StreamEngine(ServingCore):
                          adapt=adapt, window=window)],
             n_features=n_features, stride=stride, deadline_s=deadline_s,
             norm_mean=norm_mean, norm_std=norm_std, backend=backend,
-            mesh=mesh, async_depth=async_depth, device=device)
+            shard=shard, mesh=mesh, async_depth=async_depth, device=device)
         unit = self._units[0]
         self.model = model
         self.window = unit.window
@@ -86,6 +107,7 @@ class StreamEngine(ServingCore):
         self.head = unit.head
         self.fused = unit.use_fused
         self.adapt = unit.adapt
+        self.shard_streams = unit.rows
 
     @property
     def last_logits(self) -> Optional[np.ndarray]:
@@ -99,3 +121,14 @@ class StreamEngine(ServingCore):
     @live_threshold.setter
     def live_threshold(self, value: Optional[float]) -> None:
         self._units[0].live_threshold = value
+
+    @property
+    def _ring(self) -> torch.Tensor:
+        """This rank's rows of the ring arena."""
+        return self._rings[0]
+
+    @property
+    def _step(self) -> Callable:
+        """The single-model step over the unit's body (see
+        ``ServingCore._single_step_view``)."""
+        return self._single_step_view()

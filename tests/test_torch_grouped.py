@@ -451,9 +451,10 @@ def test_mega_reason_and_knob():
     readings = readings_for(8, seed=2)
     serve(engine, readings)
     assert engine.stats.dispatches == 4 * engine.stats.steps
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    # A mesh needs a process group, world size 1 included.
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         GroupedStreamEngine(groups, shard=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(ValueError, match="needs a 'data' axis"):
         GroupedStreamEngine(groups, mesh=object(), **kw)
     with pytest.raises(ValueError, match="duplicate"):
         GroupedStreamEngine(groups[:1] * 2, **kw)

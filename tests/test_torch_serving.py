@@ -207,8 +207,11 @@ def test_engine_contract_errors():
         StreamEngine(tm, tp, n_streams=2, device="cpu", fused=True)
     # An unfusable stack still serves per layer.
     assert StreamEngine(tm, tp, n_streams=2, device="cpu").fused is False
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(ValueError, match="needs a 'data' axis"):
         StreamEngine(tm, tp, n_streams=2, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="shard=False contradicts"):
+        StreamEngine(tm, tp, n_streams=2, device="cpu", shard=False,
+                     mesh=object())
     with pytest.raises(ValueError, match="async_depth"):
         StreamEngine(tm, tp, n_streams=2, device="cpu", async_depth=2)
     with pytest.raises(ValueError, match="output width"):
