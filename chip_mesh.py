@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
-"""Phase 15 of ``chip_smoke.py`` alone: the fleet served on
-``torch.distributed`` meshes, runs (L)-(Q), on a machine with one card or
-several.  With four cards, (L)-(P) put one rank on each card over NCCL;
-with fewer, four ranks share them over gloo.
+"""Phases 15 and 16 of ``chip_smoke.py`` alone, on a machine with one card
+or several: the fleet served on ``torch.distributed`` meshes, runs (L)-(Q),
+and the sharded LLM train step, runs (R)-(V).  With four cards the ranks of
+(L)-(P) and (R)-(T) take one card each over NCCL; with fewer, four ranks
+share them over gloo.  With four cards phase 16 adds the run one card
+cannot hold: qwen3-8b uncut on a (1, 4) mesh
+(``chip_smoke.train_mesh_uncut``).
 
 Run from the root of a checkout: ``python3 chip_mesh.py``.  It builds the
 kernels, makes ``chip_smoke.py``'s fleet models on the card (the same
 builders and seeds; the four-head fleet's score thresholds are fixed here,
-not calibrated) and calls ``chip_smoke.mesh_phase``, which prints one JSON
-line per run and raises on any mismatch.  The last line is the kernel
-launches of every rank's runs, summed.
+not calibrated) and calls ``chip_smoke.mesh_phase`` and
+``chip_smoke.train_mesh_phase``, which print one JSON line per run and
+raise on any mismatch.  The last line is the kernel launches of every
+rank's runs, summed.
 """
 
 import dataclasses
@@ -76,11 +80,18 @@ def main():
     groups = [ModelGroup(name, m, p, cs.MESH_PLANTS, h)
               for name, (m, p), h in zip(cs.GROUPS, models, heads)]
     groups[1] = dataclasses.replace(groups[1], adapt=AdaptConfig())
+    smi = cs.nvidia_smi()
     launches = cs.mesh_phase(
-        dev, cs.nvidia_smi(), {"cls_sint": cls_sint, "cls_real": cls_real,
-                               "ae_sint": ae_sint, "ae_head": ae_head,
-                               "groups": groups}, base)
-    print(json.dumps({"mesh_launches": launches,
+        dev, smi, {"cls_sint": cls_sint, "cls_real": cls_real,
+                   "ae_sint": ae_sint, "ae_head": ae_head,
+                   "groups": groups}, base)
+    del cls_sint, cls_real, ae_sint, models, groups
+    torch.cuda.empty_cache()
+    train = cs.train_mesh_phase(dev, smi)
+    if torch.cuda.device_count() >= cs.TM_WORLD:
+        uncut = cs.train_mesh_uncut(dev, smi)
+        train = {k: train[k] + uncut[k] for k in train}
+    print(json.dumps({"mesh_launches": launches, "train_mesh_launches": train,
                       "cards": torch.cuda.device_count()}), flush=True)
 
 

@@ -9,6 +9,12 @@ pattern with manifest dtype ``"bfloat16"`` and read back through an
 ``int16`` view (numpy has no bfloat16, and this package needs no
 ``ml_dtypes``); a step is written to ``step_XXXXXXXX.tmp`` and renamed
 whole before ``LATEST`` moves to it.
+
+A tree of DTensors (a sharded train step's params and moments) is saved
+whole: every rank gathers each leaf (``full_tensor``, a collective), rank 0
+writes the files, and all meet at a barrier before ``save`` returns.  A
+DTensor leaf of ``restore``'s ``tree_like`` is read whole on every rank and
+laid out again with that leaf's placements, each rank keeping its shards.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import Device, resolve_device
 
@@ -51,12 +59,27 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 def save(directory: str, step: int, tree: Any) -> str:
     """Write a checkpoint of ``tree`` (nested dicts of tensors or arrays)
-    for ``step``; returns the checkpoint directory."""
+    for ``step``; returns the checkpoint directory.  With DTensor leaves
+    every rank of their mesh calls this (module docstring)."""
+    flat = _flatten_with_paths(tree)
+    if any(isinstance(leaf, DTensor) for _, leaf in flat):
+        flat = [(k, leaf.full_tensor() if isinstance(leaf, DTensor)
+                 else leaf) for k, leaf in flat]
+        writer = dist.get_rank() == 0
+        try:
+            return _write(directory, step, flat) if writer else \
+                os.path.join(directory, f"step_{step:08d}")
+        finally:
+            dist.barrier()
+    return _write(directory, step, flat)
+
+
+def _write(directory: str, step: int, flat: List[Tuple[str, Any]]) -> str:
     ckpt = os.path.join(directory, f"step_{step:08d}")
     tmp = ckpt + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     manifest = {}
-    for key, leaf in _flatten_with_paths(tree):
+    for key, leaf in flat:
         arr, dtype_name = _to_numpy(leaf)
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -98,7 +121,8 @@ def restore(directory: str, tree_like: Any, step: Optional[int] = None, *,
     shapes are validated (``ValueError``), a leaf the checkpoint lacks
     raises ``KeyError``.  Each leaf lands on its ``like``'s device, or on
     ``device`` for a ``meta`` one (the card unless the caller asks for
-    the CPU)."""
+    the CPU); a DTensor ``like`` gives a DTensor with its placements on
+    its mesh."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -116,6 +140,11 @@ def restore(directory: str, tree_like: Any, step: Optional[int] = None, *,
         if tuple(arr.shape) != want_shape:
             raise ValueError(f"{key}: shape {arr.shape} != expected "
                              f"{want_shape}")
+        if isinstance(like, DTensor):
+            whole = _from_numpy(arr, meta["dtype"]).to(
+                like.to_local().device, dtype=like.dtype)
+            return distribute_tensor(whole, like.device_mesh,
+                                     like.placements, src_data_rank=None)
         dev = resolve_device(device) if like.device.type == "meta" \
             else like.device
         return _from_numpy(arr, meta["dtype"]).to(dev, dtype=like.dtype)

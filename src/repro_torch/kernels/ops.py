@@ -26,6 +26,8 @@ import dataclasses
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core.layers import ACTIVATIONS, Dense, Input, int_matmul
 from repro_torch.core.prune import BlockSparseWeight
@@ -659,6 +661,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     so, with zeros (steps with dt = 0 contribute nothing), as the
     reference's Pallas wrapper pads.
     """
+    if isinstance(x, DTensor):
+        # No two batch rows meet in the scan: each rank scans its own.
+        return rowwise(
+            lambda *t: ssd(*t, backend=backend, return_state=return_state),
+            (x, dt), (a,), (b, c), n_out=2 if return_state else 1)
     backend = _backend_of(backend, "ssd_scan")
     if backend == "chunked" or backend == "ref" or not _use_kernel(
             x, backend, "ssd_scan"):
@@ -686,3 +693,35 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                for v in (x, b, c))
     return ssd_scan.ssd_scan(x, dt.contiguous(), a.contiguous(), b, c,
                              return_state=return_state)
+
+
+def rowwise(fn, batched: Sequence[torch.Tensor],
+            shared: Sequence[torch.Tensor] = (),
+            more_batched: Sequence[torch.Tensor] = (), *, n_out: int = 1):
+    """``fn(*batched, *shared, *more_batched)``, an op in which no two batch
+    rows meet, on DTensor operands: each rank runs ``fn`` on its own rows of
+    the batched operands (dim 0 sharded as the first one's, every other dim
+    whole) with the ``shared`` ones (params) whole, and its ``n_out``
+    outputs keep the rows' sharding.  A shared operand's gradient is a
+    partial sum over the row shards."""
+    first = batched[0]
+    mesh = first.device_mesh
+    rows = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                 for pl in first.placements)
+    rep = (Replicate(),) * mesh.ndim
+    part = tuple(Partial() if pl.is_shard(0) else Replicate() for pl in rows)
+    args = [v if isinstance(v, DTensor) else DTensor.from_local(
+        v, mesh, rep, run_check=False)
+        for v in (*batched, *shared, *more_batched)]
+    kinds = ([rows] * len(batched) + [rep] * len(shared)
+             + [rows] * len(more_batched))
+    grads = ([rows] * len(batched) + [part] * len(shared)
+             + [rows] * len(more_batched))
+    fn = local_map(
+        fn,
+        # One output's placements are a list: local_map reads a tuple as
+        # one entry per output.
+        out_placements=(rows,) * n_out if n_out > 1 else list(rows),
+        in_placements=tuple(kinds), in_grad_placements=tuple(grads),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(*args)

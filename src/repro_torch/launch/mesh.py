@@ -17,7 +17,11 @@ it has no coordinate).
 Backends are the caller's choice and are never switched after a failure:
 ``"nccl"`` puts one rank on each card; ``"gloo"`` serves CPU ranks, or ranks
 that share a card (it moves CUDA tensors through the host).  NCCL refuses two
-ranks on one device.
+ranks on one device.  PyTorch's functional collectives, which DTensor
+redistributions run, end gloo ranks on CUDA tensors with a segmentation
+fault (torch 2.11 on the H100), where the plain ``torch.distributed`` calls
+work; :func:`route_gloo_cuda_collectives` routes them through those calls,
+and :func:`spawn` installs it in gloo ranks on a CUDA machine.
 
 The reference's roofline constants (``PEAK_BF16_FLOPS``, ``HBM_BW``, ...)
 are a TPU v5e's and are not carried over: the port states no TPU number.
@@ -62,7 +66,9 @@ def make_production_mesh(*, multi_pod: bool = False,
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
-    have = _world()
+    # Without a process group there are no ranks: the size is what fails.
+    have = dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 0
     if have < n:
         raise RuntimeError(
             f"mesh {shape} needs {n} ranks but only {have} present; "
@@ -112,6 +118,120 @@ def data_axes(mesh: Any) -> Tuple[str, ...]:
     return ("pod", "data") if "pod" in names else ("data",)
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+
+def route_gloo_cuda_collectives(device_types: Tuple[str, ...] = ("cuda",)
+                                ) -> Callable[[], None]:
+    """Route DTensor's functional collectives on tensors of
+    ``device_types`` over gloo groups through the plain in-place calls
+    (``all_reduce``, ``all_gather_into_tensor``): a reduce-scatter becomes
+    an all-reduce and the rank's chunk, an all-to-all an all-gather and the
+    rank's chunks (the CPU fallback DTensor itself takes).  Other groups and
+    devices keep the functional path.  Process-global; returns a function
+    that restores the functional path."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import _collective_utils, placement_types
+
+    def group_of(group, tag=""):
+        if isinstance(group, dist.ProcessGroup):
+            return group
+        if isinstance(group, tuple):
+            return group[0].get_group(group[1])
+        if isinstance(group, DeviceMesh):
+            return group.get_group()
+        return dist.distributed_c10d._resolve_process_group(
+            funcol._resolve_group_name(group, tag))
+
+    def routed(t, group, tag=""):
+        if not isinstance(t, torch.Tensor) or t.device.type not in \
+                device_types:
+            return None
+        pg = group_of(group, tag)
+        return pg if dist.get_backend(pg) == "gloo" else None
+
+    def reduce(t, op, pg):
+        out = t.contiguous().clone()
+        dist.all_reduce(out, op=_REDUCE_OPS["sum" if op == "avg" else op],
+                        group=pg)
+        return out / pg.size() if op == "avg" else out
+
+    def gather(t, dim, pg):
+        n = pg.size()
+        out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        dist.all_gather_into_tensor(out, t.contiguous(), group=pg)
+        return out if dim == 0 else torch.cat(torch.chunk(out, n), dim=dim)
+
+    saved = []
+
+    def patch(module, name, make):
+        original = getattr(module, name, None)
+        if original is not None:
+            saved.append((module, name, original))
+            setattr(module, name, make(original))
+
+    def all_reduce(original):
+        def fn(self, reduceOp, group, tag=""):
+            pg = routed(self, group, tag)
+            return original(self, reduceOp, group, tag) if pg is None \
+                else reduce(self, reduceOp.lower(), pg)
+        return fn
+
+    def all_gather(original):
+        def fn(self, gather_dim, group, tag=""):
+            pg = routed(self, group, tag)
+            return original(self, gather_dim, group, tag) if pg is None \
+                else gather(self, gather_dim, pg)
+        return fn
+
+    def reduce_scatter(original):
+        def fn(self, reduceOp, scatter_dim, group, tag=""):
+            pg = routed(self, group, tag)
+            if pg is None:
+                return original(self, reduceOp, scatter_dim, group, tag)
+            out = reduce(self, reduceOp.lower(), pg)
+            return torch.chunk(out, pg.size(), dim=scatter_dim)[
+                pg.rank()].contiguous()
+        return fn
+
+    def all_to_all(original):
+        def fn(self, output_split_sizes, input_split_sizes, group, tag=""):
+            pg = routed(self, group, tag)
+            if pg is None or output_split_sizes or input_split_sizes:
+                return original(self, output_split_sizes, input_split_sizes,
+                                group, tag)
+            rows = gather(self, 0, pg).chunk(pg.size())
+            return torch.cat([r.chunk(pg.size())[pg.rank()] for r in rows])
+        return fn
+
+    def shard_dim_alltoall(original):
+        def fn(input, gather_dim, shard_dim, mesh, mesh_dim):
+            pg = routed(input, (mesh, mesh_dim))
+            if pg is None:
+                return original(input, gather_dim, shard_dim, mesh, mesh_dim)
+            out = gather(input, gather_dim, pg)
+            return torch.chunk(out, pg.size(), dim=shard_dim)[
+                pg.rank()].contiguous()
+        return fn
+
+    patch(funcol, "all_reduce", all_reduce)
+    for name in ("all_gather_tensor", "all_gather_single"):
+        patch(funcol, name, all_gather)
+    for name in ("reduce_scatter_tensor", "reduce_scatter_single"):
+        patch(funcol, name, reduce_scatter)
+    patch(funcol, "all_to_all_single", all_to_all)
+    for module in (_collective_utils, placement_types):
+        patch(module, "shard_dim_alltoall", shard_dim_alltoall)
+
+    def restore() -> None:
+        for module, name, original in reversed(saved):
+            setattr(module, name, original)
+
+    return restore
+
+
 def _rank_main(rank: int, fn: Callable, world: int, backend: str,
                init_method: str, args: tuple, results) -> None:
     # One rank per card where there are enough cards; ranks beyond the
@@ -120,6 +240,8 @@ def _rank_main(rank: int, fn: Callable, world: int, backend: str,
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank)
+    if backend == "gloo" and torch.cuda.is_available():
+        route_gloo_cuda_collectives()
     try:
         results.put((rank, fn(rank, world, *args)))
     finally:

@@ -28,11 +28,14 @@ DTensor activations out as the reference constrains its activations.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+import contextlib
+from typing import (Any, Callable, Dict, Iterator, Mapping, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.mesh import data_axes
@@ -262,6 +265,9 @@ def activation_hook(mesh: Any, *, batch_sharded: bool,
             spec = (dp if batch_sharded else None, "model", None, None)
         else:
             return x
+        # A dim the axes do not divide replicates (sanitize): an uneven
+        # shard would leave a rank empty-handed.
+        spec = sanitize(spec, tuple(x.shape), mesh)
         return x.redistribute(mesh, to_placements(spec, mesh))
 
     return hook
@@ -273,3 +279,54 @@ def install_hook(mesh: Optional[Any], *, batch_sharded: bool = True,
     hook, or remove it (``mesh=None``)."""
     cm.set_constrain_hook(None if mesh is None else activation_hook(
         mesh, batch_sharded=batch_sharded, seq_parallel=seq_parallel))
+
+
+@contextlib.contextmanager
+def hooked(mesh: Any, *, batch_sharded: bool = True,
+           seq_parallel: bool = False) -> Iterator[None]:
+    """:func:`install_hook` for the length of a ``with`` block; the hook
+    that was installed before comes back after it."""
+    before = cm._CONSTRAIN_HOOK
+    install_hook(mesh, batch_sharded=batch_sharded, seq_parallel=seq_parallel)
+    try:
+        yield
+    finally:
+        cm.set_constrain_hook(before)
+
+
+# ---------------------------------------------------------------------------
+# Placing trees on a mesh
+# ---------------------------------------------------------------------------
+
+
+def place(tree: Any, specs: Any, mesh: Any) -> Any:
+    """Every tensor leaf of ``tree`` as a DTensor on ``mesh`` laid out by
+    the same place of ``specs`` (:func:`to_placements`).  Every rank holds
+    the whole tree (made from one seed, or read from one checkpoint) and
+    keeps its own shards: no data moves."""
+    flat = dict(_paths(specs))
+    return _map_paths(lambda path, leaf: distribute_tensor(
+        leaf, mesh, to_placements(flat[path], mesh), src_data_rank=None),
+        tree)
+
+
+def shard_params(params: Any, cfg: ArchConfig, mesh: Any) -> Any:
+    """``params`` laid out by :func:`param_shardings`."""
+    return place(params, param_shardings(params, cfg, mesh), mesh)
+
+
+def shard_opt_state(opt: OptState, params: Any, cfg: ArchConfig,
+                    mesh: Any) -> OptState:
+    """An optimizer state of the unsharded params laid out by
+    :func:`opt_shardings`; the step stays the host counter it is."""
+    specs = opt_shardings(opt, param_shardings(params, cfg, mesh), mesh)
+    return OptState(step=opt.step, mu=place(opt.mu, specs.mu, mesh),
+                    nu=place(opt.nu, specs.nu, mesh))
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh: Any
+                ) -> Dict[str, torch.Tensor]:
+    """A global batch laid out by :func:`batch_shardings` (its leading dim
+    over the data axes where they divide it)."""
+    size = next(iter(batch.values())).shape[0]
+    return place(batch, batch_shardings(batch, mesh, batch_size=size), mesh)

@@ -7,6 +7,13 @@ kernels: the step differentiates the model built with :data:`GRAD_BACKEND`,
 whatever backend the given API serves with, since no kernel of the port has
 a backward (``kernels.ops`` raises if one is asked for a gradient).  Off
 the TPU the reference's gradient takes the same path, the chunked SSD.
+
+:func:`make_sharded_train_step` is the reference's train step jitted on a
+mesh (``in_shardings=(p_shard, o_shard, b_shard)``,
+``out_shardings=(p_shard, o_shard, None)``): params and moments are
+DTensors laid out by ``launch.shardings`` (``shard_params``; an optimizer
+state made from them, or ``shard_opt_state``), the batch goes through
+``shard_batch``, and the activation hook is installed for the step.
 """
 
 from __future__ import annotations
@@ -14,7 +21,9 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.launch import shardings as sh
 from repro_torch.models.api import Batch, ModelAPI, Params, get_model
 from repro_torch.optim import (adamw, apply_updates, global_norm,
                                linear_warmup_cosine)
@@ -42,6 +51,9 @@ def loss_and_grads(api: ModelAPI, params: Params, batch: Batch
     try:
         with torch.enable_grad():
             loss = loss_fn(params, batch)
+            if isinstance(loss, DTensor):
+                # One replicated scalar: autograd seeds it with 1 once.
+                loss = loss.full_tensor()
             flat = torch.autograd.grad(loss, trainable, allow_unused=True)
     finally:
         for p in trainable:
@@ -62,6 +74,34 @@ def make_train_step(api: ModelAPI, opt_update) -> Callable:
     place."""
     def train_step(params: Params, opt_state, batch: Batch):
         loss, grads = loss_and_grads(api, params, batch)
+        updates, opt_state = opt_update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        metrics = {"loss": loss, "grad_norm": global_norm(grads)}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_sharded_train_step(api: ModelAPI, opt_update, mesh: Any
+                            ) -> Callable:
+    """:func:`make_train_step` on ``mesh``: ``train_step(params, opt_state,
+    batch)`` with params and moments laid out by the sharding rules and a
+    global batch (plain tensors, the same on every rank, or already laid
+    out).  The gradients come back from autograd as pending sums over the
+    data axes (and over ``"model"`` for input-sharded weights); each is
+    redistributed to its param's placements before the update, so params
+    and moments keep the placements they came in with."""
+    cfg = api.cfg
+
+    def train_step(params: Params, opt_state, batch: Batch):
+        if not all(isinstance(v, DTensor) for v in batch.values()):
+            batch = sh.shard_batch(batch, mesh)
+        with sh.hooked(mesh, batch_sharded=True,
+                       seq_parallel=cfg.seq_parallel):
+            loss, grads = loss_and_grads(api, params, batch)
+        grads = tree_map(
+            lambda g, p: g.redistribute(p.device_mesh, p.placements)
+            if g.placements != p.placements else g, grads, params)
         updates, opt_state = opt_update(grads, opt_state, params)
         params = apply_updates(params, updates)
         metrics = {"loss": loss, "grad_norm": global_norm(grads)}

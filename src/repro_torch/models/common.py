@@ -24,8 +24,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.core.layers import TORCH_INT_TYPES
 from repro_torch.core.quantize import quantize_tensor
@@ -57,6 +60,20 @@ def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
     if _CONSTRAIN_HOOK is None:
         return x
     return _CONSTRAIN_HOOK(x, name)
+
+
+def replicated_like(t: Any, x: torch.Tensor) -> Any:
+    """``t``, a plain tensor the model makes (a rotary table, a mask, or a
+    dict of them), as a ``Replicate()`` DTensor on the mesh of ``x`` when
+    ``x`` is a DTensor, so the two can meet in one op; ``t`` itself
+    otherwise.  Every rank makes the same ``t``, so no data moves."""
+    if isinstance(t, dict):
+        return {k: replicated_like(v, x) for k, v in t.items()}
+    if not isinstance(x, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = x.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +147,63 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(p["emb"], DTensor):
+        return _embed_sharded(p["emb"], tokens)
     return p["emb"][tokens]
+
+
+def _embed_sharded(emb: DTensor, tokens: torch.Tensor) -> DTensor:
+    """:func:`embed` of a DTensor table, per shard (``local_map``): along
+    the mesh dim that shards the vocab each rank looks up the tokens its
+    rows hold and zeros the others, and the pending sum is reduced; along
+    one that shards the tokens' rows each rank looks up its rows (the
+    table's gradient a partial sum over them)."""
+    mesh = emb.device_mesh
+    tokens = replicated_like(tokens, emb)
+    tok_pl, emb_pl, out_pl, grad_pl = [], [], [], []
+    vocab_dim = None
+    for i, pl in enumerate(emb.placements):
+        if pl.is_shard(0):
+            vocab_dim = i
+            tok_pl.append(Replicate())
+            emb_pl.append(Shard(0))
+            out_pl.append(Partial())
+            grad_pl.append(Shard(0))
+        else:
+            rows = tokens.placements[i].is_shard(0)
+            tok_pl.append(Shard(0) if rows else Replicate())
+            emb_pl.append(Replicate())
+            out_pl.append(Shard(0) if rows else Replicate())
+            grad_pl.append(Partial() if rows else Replicate())
+
+    def local(tokens, emb):
+        if vocab_dim is None:
+            return emb[tokens]
+        start = mesh.get_local_rank(vocab_dim) * emb.shape[0]
+        ids = tokens - start
+        own = (ids >= 0) & (ids < emb.shape[0])
+        rows = emb[torch.where(own, ids, torch.zeros_like(ids))]
+        return torch.where(own[..., None], rows, torch.zeros_like(rows))
+
+    x = local_map(local, out_placements=out_pl,
+                  in_placements=(tuple(tok_pl), tuple(emb_pl)),
+                  in_grad_placements=(tuple(tok_pl), tuple(grad_pl)),
+                  device_mesh=mesh, redistribute_inputs=True)(tokens, emb)
+    return x.redistribute(mesh, [Replicate() if pl.is_partial() else pl
+                                 for pl in x.placements])
+
+
+def pad(t: torch.Tensor, widths: Tuple[int, ...]) -> torch.Tensor:
+    """``F.pad(t, widths)`` with zeros; ``t`` itself when every width is 0,
+    and a DTensor padded shard by shard (its padded dims whole)."""
+    if not any(widths):
+        return t
+    if isinstance(t, DTensor):
+        return local_map(lambda x: F.pad(x, widths),
+                         out_placements=list(t.placements),
+                         in_placements=(tuple(t.placements),),
+                         device_mesh=t.device_mesh)(t)
+    return F.pad(t, widths)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -141,11 +214,88 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
                   ) -> torch.Tensor:
     """Mean token cross-entropy; logits (B, S, V) f32, labels (B, S)
-    integer ids."""
+    integer ids.  DTensor logits take :func:`_sharded_cross_entropy`."""
+    if isinstance(logits, DTensor):
+        return _sharded_cross_entropy(logits, labels)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         labels.to(torch.int64)[..., None])[..., 0]
     return torch.mean(logz - gold)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token ``logsumexp(logits) - logits[label]`` of one rank's vocab
+    slice ``[start, start + V_local)``, the other slices on the ranks of
+    ``group``: the row maximum, the sum of exponentials and the gold logit
+    (masked to the slice that owns the label, zero elsewhere) are each
+    all-reduced over the group, so no rank gathers the logits.  The
+    backward is the local slice of ``softmax - one_hot(label)``, which needs
+    no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, start, group):
+        v_local = logits.shape[-1]
+        row_max = torch.amax(logits, dim=-1)
+        dist.all_reduce(row_max, op=dist.ReduceOp.MAX, group=group)
+        shifted = logits - row_max[..., None]
+        exps = torch.exp(shifted)
+        sum_exp = exps.sum(dim=-1)
+        dist.all_reduce(sum_exp, op=dist.ReduceOp.SUM, group=group)
+        local = labels - start
+        own = (local >= 0) & (local < v_local)
+        idx = torch.where(own, local, torch.zeros_like(local))
+        gold = torch.gather(shifted, -1, idx[..., None])[..., 0]
+        gold = torch.where(own, gold, torch.zeros_like(gold))
+        dist.all_reduce(gold, op=dist.ReduceOp.SUM, group=group)
+        probs = exps.div_(sum_exp[..., None])
+        ctx.save_for_backward(probs, idx, own)
+        return torch.log(sum_exp) - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        probs, idx, own = ctx.saved_tensors
+        g = probs * grad[..., None]
+        g.scatter_add_(-1, idx[..., None],
+                       -(grad * own.to(grad.dtype))[..., None])
+        return g, None, None, None
+
+
+def _sharded_cross_entropy(logits: DTensor, labels: torch.Tensor
+                           ) -> torch.Tensor:
+    """:func:`cross_entropy` of DTensor logits, each rank over the tokens
+    its shard holds.  Logits sharded on the vocab over one mesh dim of more
+    than one rank (the tied ``emb`` on ``"model"``) take the vocab-parallel
+    form (:class:`_VocabParallelNLL`): each rank keeps its vocab slice.
+    Otherwise each rank takes the plain form over its tokens, the vocab
+    whole."""
+    mesh, v_dim = logits.device_mesh, logits.ndim - 1
+    vocab_dims = [i for i, pl in enumerate(logits.placements)
+                  if pl.is_shard(v_dim) and mesh.size(i) > 1]
+    if len(vocab_dims) > 1 or vocab_dims and \
+            logits.shape[-1] % mesh.size(vocab_dims[0]):
+        raise ValueError(f"vocab-parallel cross-entropy needs the vocab "
+                         f"({logits.shape[-1]}) evenly sharded over one mesh "
+                         f"dim, got {logits.placements}")
+    # Never a pending sum into to_local: a Partial placement replicates, and
+    # so does a vocab dim sharded over one rank.
+    logits = logits.redistribute(mesh, [
+        Replicate() if pl.is_partial() or pl.is_shard(v_dim)
+        and i not in vocab_dims else pl
+        for i, pl in enumerate(logits.placements)])
+    token_pl = [Replicate() if i in vocab_dims else pl
+                for i, pl in enumerate(logits.placements)]
+    labels = replicated_like(labels, logits).redistribute(mesh, token_pl)
+    local, ids = logits.to_local(), labels.to_local().to(torch.int64)
+    if vocab_dims:
+        vd = vocab_dims[0]
+        nll = _VocabParallelNLL.apply(
+            local, ids, mesh.get_local_rank(vd) * local.shape[-1],
+            mesh.get_group(vd))
+    else:
+        nll = torch.logsumexp(local, dim=-1) - torch.gather(
+            local, -1, ids[..., None])[..., 0]
+    return torch.mean(DTensor.from_local(nll, mesh, token_pl,
+                                         run_check=False))
 
 
 def stack_layers(init_one: Callable[[], Params], n: int,
@@ -237,8 +387,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     d = x.shape[-1]
     freqs = rope_frequencies(d, theta, x.device)              # (D/2,)
     angles = positions[..., None].to(torch.float32) * freqs   # (B, S, D/2)
-    cos = torch.cos(angles)[..., None, :]                     # (B, S, 1, D/2)
-    sin = torch.sin(angles)[..., None, :]
+    cos = replicated_like(torch.cos(angles)[..., None, :], x)  # (B,S,1,D/2)
+    sin = replicated_like(torch.sin(angles)[..., None, :], x)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -266,6 +416,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Grouped-query attention, scores and softmax in f32.  q (B, Sq, H, D),
     k and v (B, Sk, K, D), mask (Sq, Sk) or per row (B, Sq, Sk) bool.
     Returns (B, Sq, H, D) in q's type."""
+    if isinstance(q, DTensor):
+        return _gqa_sharded(q, k, v, mask)
     b, sq, h, d = q.shape
     kheads = k.shape[2]
     qg = q.reshape(b, sq, kheads, h // kheads, d)
@@ -276,6 +428,45 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, sq, h, d)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _gqa_sharded(q: DTensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor) -> DTensor:
+    """:func:`gqa_attention` of DTensors, per shard (``local_map``): no two
+    batch rows and no two KV-head groups meet in attention, so each rank
+    attends over its rows (q's dim-0 sharding) and its KV heads with their
+    query heads (q's head sharding, where the axis divides the KV heads),
+    every position whole."""
+    mesh, kheads = q.device_mesh, k.shape[2]
+    pl = tuple(Shard(0) if p.is_shard(0) else
+               Shard(2) if p.is_shard(2) and kheads % mesh.size(i) == 0
+               else Replicate() for i, p in enumerate(q.placements))
+    m_pl = tuple(Shard(0) if p.is_shard(0) and mask.ndim == 3
+                 else Replicate() for p in pl)
+    k, v, mask = (replicated_like(t, q) for t in (k, v, mask))
+
+    def local(q, k, v, mask):
+        # The shards' gradients leave in the layout the einsums give them;
+        # the DTensor views they flow back through need them contiguous.
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return gqa_attention(q, k, v, mask)
+
+    fn = local_map(local, out_placements=list(pl),
+                   in_placements=(pl, pl, pl, m_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(q, k, v, mask)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,16 +502,29 @@ def attn_init(generator: torch.Generator, a: AttnConfig,
     return p
 
 
+def split_heads(y: torch.Tensor, heads: int, d_head: int) -> torch.Tensor:
+    """(B, S, heads * d_head) -> (B, S, heads, d_head).  A DTensor whose
+    last dim is sharded over more ranks than divide ``heads`` (2 KV heads
+    on a 4-way axis) is gathered along it first: a shard may not cut a
+    head."""
+    if isinstance(y, DTensor):
+        mesh, last = y.device_mesh, y.ndim - 1
+        whole = [Replicate() if pl.is_shard(last) and heads % mesh.size(i)
+                 else pl for i, pl in enumerate(y.placements)]
+        if whole != list(y.placements):
+            y = y.redistribute(mesh, whole)
+    return y.reshape(*y.shape[:-1], heads, d_head)
+
+
 def attn_qkv(p: Params, a: AttnConfig, x: torch.Tensor,
              positions: torch.Tensor, *, backend: kops.Backend = "auto"
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    b, s, _ = x.shape
     d_head = a.head_dim
-    q = linear(p["wq"], x, backend=backend).reshape(b, s, a.n_heads, d_head)
-    k = linear(p["wk"], x, backend=backend).reshape(b, s, a.n_kv_heads,
-                                                    d_head)
-    v = linear(p["wv"], x, backend=backend).reshape(b, s, a.n_kv_heads,
-                                                    d_head)
+    q = split_heads(linear(p["wq"], x, backend=backend), a.n_heads, d_head)
+    k = split_heads(linear(p["wk"], x, backend=backend), a.n_kv_heads,
+                    d_head)
+    v = split_heads(linear(p["wv"], x, backend=backend), a.n_kv_heads,
+                    d_head)
     if a.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
@@ -357,9 +561,9 @@ def attn_prefill(p: Params, a: AttnConfig, x: torch.Tensor,
     mask = gqa_scores_mask(positions, positions, causal=True,
                            window=_window(a, window_override))
     out = gqa_attention(q, k, v, mask)
-    pad = (0, 0, 0, 0, 0, cache_len - x.shape[1])
+    widths = (0, 0, 0, 0, 0, cache_len - x.shape[1])
     return (linear(p["wo"], out.reshape(*x.shape[:2], -1), backend=backend),
-            (F.pad(k, pad), F.pad(v, pad)))
+            (pad(k, widths), pad(v, widths)))
 
 
 def _decode_mask(s_max: int, pos: torch.Tensor, window: Optional[int]
@@ -385,18 +589,49 @@ def _cache_write(cache: Tuple[torch.Tensor, ...], k: torch.Tensor,
     rows = torch.arange(k.shape[0], device=k.device)
     if pos.ndim == 0:
         idx = idx.expand(k.shape[0])
+    write = _write_rows_sharded if isinstance(cache[0], DTensor) else \
+        _write_rows
     if len(cache) == 4:
         k_cache, v_cache, ks_cache, vs_cache = cache
         (kq, ks), (vq, vs) = _quantize_kv(k), _quantize_kv(v)
         for full, new in ((k_cache, kq), (v_cache, vq), (ks_cache, ks),
                           (vs_cache, vs)):
-            full[rows, idx] = new[:, 0]
+            write(full, rows, idx, new[:, 0])
         return (k_cache.to(dtype) * ks_cache[..., None].to(dtype),
                 v_cache.to(dtype) * vs_cache[..., None].to(dtype))
     k_cache, v_cache = cache
-    k_cache[rows, idx] = k[:, 0]
-    v_cache[rows, idx] = v[:, 0]
+    write(k_cache, rows, idx, k[:, 0])
+    write(v_cache, rows, idx, v[:, 0])
     return k_cache, v_cache
+
+
+def _write_rows(full: torch.Tensor, rows: torch.Tensor, idx: torch.Tensor,
+                new: torch.Tensor) -> None:
+    full[rows, idx] = new
+
+
+def _write_rows_sharded(full: DTensor, rows: torch.Tensor, idx: torch.Tensor,
+                        new: torch.Tensor) -> None:
+    """:func:`_write_rows` into a cache DTensor sharded on its batch and
+    position dims (``launch.shardings.cache_shardings``): every rank takes
+    the whole (one token's) ``new`` and writes the rows whose position falls
+    in its slice, in place; the others keep what they hold."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, rep = full.device_mesh, [Replicate()] * full.device_mesh.ndim
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, mesh, full.placements)
+    local = full.to_local()
+    whole = [replicated_like(t, full).redistribute(mesh, rep).to_local()
+             for t in (rows, idx, new)]
+    mine = slice(offset[0], offset[0] + shape[0])
+    rows, idx, new = (t[mine] for t in whole)
+    at = idx - offset[1]
+    ok = (at >= 0) & (at < shape[1])
+    at = torch.clamp(at, 0, shape[1] - 1)
+    r = rows - offset[0]
+    keep = ok.reshape(ok.shape + (1,) * (new.ndim - 1))
+    local[r, at] = torch.where(keep, new.to(local.dtype), local[r, at])
 
 
 def attn_decode(p: Params, a: AttnConfig, x: torch.Tensor, pos,

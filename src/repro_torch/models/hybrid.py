@@ -170,7 +170,9 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     period, attn_pos, n_super, *_ = _layout(cfg)
     x = cm.embed(params["embed"], tokens).to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
+    # Under a mesh the arena replicates; each write takes its layout.
+    cache = cm.replicated_like(
+        init_cache(cfg, x.shape[0], cache_len, device=x.device), x)
     for s in range(n_super):
         sb = _take(params["blocks"], s)
         mamba_j = 0

@@ -24,6 +24,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
@@ -86,6 +88,11 @@ def _causal_conv(p: Params, xbc: torch.Tensor) -> torch.Tensor:
     channel (a cross-correlation, as ``lax.conv_general_dilated``).  The
     result is (B, S, C) contiguous: the bias add writes it so, and the SSD
     then reads its channels in place."""
+    if isinstance(xbc, DTensor):
+        # No two batch rows meet in the conv: each rank takes its own.
+        return kops.rowwise(
+            lambda x, w, b: _causal_conv({"conv_w": w, "conv_b": b}, x),
+            (xbc,), (p["conv_w"], p["conv_b"]))
     k, c = p["conv_w"].shape
     w = p["conv_w"].to(xbc.dtype).t().unsqueeze(1)        # (C, 1, K)
     y = F.conv1d(F.pad(xbc.transpose(1, 2), (k - 1, 0)), w, groups=c)
@@ -148,7 +155,7 @@ def _mamba_forward_state(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
     # prompts shorter than the kernel (the stepwise decode's initial state).
     k1 = cfg.conv_kernel - 1
     pad = max(k1 - s, 0)
-    conv_state = F.pad(xbc_pre[:, -k1:, :], (0, 0, pad, 0))
+    conv_state = cm.pad(xbc_pre[:, -k1:, :], (0, 0, pad, 0))
     xs, bmat, cmat, dt, a = _mixer_inputs(p, cfg, _causal_conv(p, xbc_pre),
                                           dt_raw)
     # The final SSM state comes out of the scan itself.
@@ -196,12 +203,30 @@ def mamba_decode(p: Params, cfg: ArchConfig, x: torch.Tensor,
     dt = F.softplus(dt_raw[:, 0].to(torch.float32) + p["dt_bias"])
     a = -torch.exp(p["a_log"])
 
-    new_state, yt = kref.ssd_update_ref(cache["ssm"], xs, dt, a, bmat, cmat)
+    update = _ssd_update_sharded if isinstance(cache["ssm"], DTensor) \
+        else kref.ssd_update_ref
+    new_state, yt = update(cache["ssm"], xs, dt, a, bmat, cmat)
     yt = yt + p["d_skip"][None, :, None] * xs
     yt = yt.reshape(b, 1, d_inner).to(cfg.dtype)
     yt = cm.rmsnorm(p["norm"], yt * F.silu(z))
     out = cm.linear(p["out_proj"], yt, backend=backend)
     return out, {"conv": conv_state, "ssm": new_state}
+
+
+def _ssd_update_sharded(state: DTensor, xt, dtt, a, bt, ct):
+    """``kref.ssd_update_ref`` of a state laid out by ``cache_shardings``
+    (rows on ``"data"``, heads on ``"model"``), per shard: no two rows or
+    heads meet in a step."""
+    mesh = state.device_mesh
+    pl = tuple(Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(1)
+               else Replicate() for p in state.placements)
+    a_pl = tuple(Shard(0) if p.is_shard(1) else Replicate() for p in pl)
+    xt, dtt, a, bt, ct = (cm.replicated_like(t, state)
+                          for t in (xt, dtt, a, bt, ct))
+    return local_map(kref.ssd_update_ref, out_placements=(pl, pl),
+                     in_placements=(pl, pl, pl, a_pl, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        state, xt, dtt, a, bt, ct)
 
 
 # ---------------------------------------------------------------------------

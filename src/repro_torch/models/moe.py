@@ -25,6 +25,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
@@ -59,20 +61,28 @@ def _capacity(group: int, cfg: ArchConfig) -> int:
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """f32 one-hot; an index outside [0, n) gives a zero row, as
     ``jax.nn.one_hot`` (``F.one_hot`` would raise)."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).to(
-        torch.float32)
+    ids = cm.replicated_like(torch.arange(n, device=idx.device), idx)
+    return (idx[..., None] == ids).to(torch.float32)
+
+
+def _route_parts(router: torch.Tensor, cfg: ArchConfig, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router: gate weights (G, T, K), expert indices (G, T, K) and the
+    softmax (G, T, E)."""
+    logits = (x @ router.to(x.dtype)).to(torch.float32)         # (G, T, E)
+    probs = torch.softmax(logits, dim=-1)
+    # lax.top_k: the k largest, ties to the lower index.
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[..., :cfg.top_k], idx[..., :cfg.top_k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    return gate, idx, probs
 
 
 def _route(p: Params, cfg: ArchConfig, x: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router: (gate weights (G, T, K), expert indices (G, T, K), the
     load-balance aux loss)."""
-    logits = (x @ p["router"].to(x.dtype)).to(torch.float32)    # (G, T, E)
-    probs = torch.softmax(logits, dim=-1)
-    # lax.top_k: the k largest, ties to the lower index.
-    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, idx = gate[..., :cfg.top_k], idx[..., :cfg.top_k]
-    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    gate, idx, probs = _route_parts(p["router"], cfg, x)
     # Switch-style load-balance aux loss: E * mean(frac_tokens * frac_probs).
     e = cfg.n_experts
     frac_tokens = _one_hot(idx[..., 0], e).mean(dim=(0, 1))    # top-1 counts
@@ -80,21 +90,12 @@ def _route(p: Params, cfg: ArchConfig, x: torch.Tensor
     return gate, idx, e * torch.sum(frac_tokens * frac_probs)
 
 
-def moe_forward_einsum(p: Params, cfg: ArchConfig, x: torch.Tensor,
-                       group: Optional[int] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GShard one-hot dispatch.  x: (B, S, D) -> (out, aux_loss)."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    tokens = b * s
-    group = min(group or cfg.moe_group, tokens)
-    assert tokens % group == 0, (tokens, group)
-    g = tokens // group
-    c = _capacity(group, cfg)
-    xg = x.reshape(g, group, d)
-
-    gate, idx, aux = _route(p, cfg, xg)                         # (G, T, K)
-
+def _dispatch_combine(gate: torch.Tensor, idx: torch.Tensor,
+                      cfg: ArchConfig, c: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (G, T, E, C) dispatch and combine tensors of a routing."""
+    g, group, k = idx.shape
+    e = cfg.n_experts
     # Position in expert with slot priority: slot 0 of every token beats
     # slot 1 (GShard's order), then token order.
     mask = _one_hot(idx, e)                                     # (G,T,K,E)
@@ -104,12 +105,38 @@ def moe_forward_einsum(p: Params, cfg: ArchConfig, x: torch.Tensor,
     pos = torch.sum(pos * mask, dim=-1).to(torch.int64)         # (G,T,K)
     keep = (pos < c) & (gate > 0)
     gate = gate * keep
-
-    # Dispatch/combine tensors (G, T, E, C).
     pos_oh = _one_hot(pos, c)                                   # (G,T,K,C)
     dispatch = torch.einsum("gtke,gtkc->gtec", mask * keep[..., None],
                             pos_oh)
     combine = torch.einsum("gtke,gtkc->gtec", mask * gate[..., None], pos_oh)
+    return dispatch, combine
+
+
+def _expert_ffn(xin: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                w_down: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU FFN: xin (G, E, C, D) -> (G, E, C, D)."""
+    h = torch.einsum("gecd,edf->gecf", xin, w_gate)
+    u = torch.einsum("gecd,edf->gecf", xin, w_up)
+    return torch.einsum("gecf,efd->gecd", F.silu(h) * u, w_down)
+
+
+def moe_forward_einsum(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                       group: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard one-hot dispatch.  x: (B, S, D) -> (out, aux_loss)."""
+    if isinstance(p["w_gate"], DTensor):
+        return _moe_sharded(p, cfg, x, group)
+    b, s, d = x.shape
+    tokens = b * s
+    group = min(group or cfg.moe_group, tokens)
+    assert tokens % group == 0, (tokens, group)
+    g = tokens // group
+    xg = x.reshape(g, group, d)
+
+    gate, idx, aux = _route(p, cfg, xg)                         # (G, T, K)
+    # Dispatch/combine tensors (G, T, E, C).
+    dispatch, combine = _dispatch_combine(gate, idx, cfg,
+                                          _capacity(group, cfg))
 
     ddt = getattr(torch, cfg.moe_dispatch_dtype)
     # To experts: (G, E, C, D), expert-major (an all-to-all under a mesh
@@ -117,13 +144,98 @@ def moe_forward_einsum(p: Params, cfg: ArchConfig, x: torch.Tensor,
     xin = torch.einsum("gtec,gtd->gecd", dispatch.to(ddt), xg.to(ddt))
     xin = cm.constrain(xin.to(cfg.dtype), "expert_in")
 
-    h = torch.einsum("gecd,edf->gecf", xin, p["w_gate"])
-    u = torch.einsum("gecd,edf->gecf", xin, p["w_up"])
-    out_e = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"])
+    out_e = _expert_ffn(xin, p["w_gate"], p["w_up"], p["w_down"])
     out_e = cm.constrain(out_e, "expert_in")
 
     out = torch.einsum("gtec,gecd->gtd", combine.to(ddt), out_e.to(ddt))
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_sharded(p: Params, cfg: ArchConfig, x: torch.Tensor,
+                 group: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_forward_einsum` on DTensor params, per shard
+    (``local_map``).
+
+    Along a mesh dim that shards the experts (``w_*`` on dim 0) each rank
+    routes the tokens it holds, takes its own experts' slice of the
+    dispatched tokens (what the ``"expert_in"`` layout puts on it) and
+    combines their outputs with its slice of the combine tensor; along one
+    that shards the FFN hidden dim (the fallback when the axis does not
+    divide the expert count) it runs every expert on its hidden columns.
+    Either way a rank holds part of each token's output, a pending sum.
+    Along a dim where the weights replicate the rows stay sharded when
+    each shard holds whole routing groups (else every rank of it computes
+    alike).  The aux loss's token and probability fractions are partial
+    sums over the row shards, counted once along a weight-sharded dim."""
+    w_gate = p["w_gate"]
+    mesh = w_gate.device_mesh
+    b, s, d = x.shape
+    tokens = b * s
+    group = min(group or cfg.moe_group, tokens)
+    assert tokens % group == 0, (tokens, group)
+    x = cm.replicated_like(x, w_gate)
+    rows = [i for i, pl in enumerate(x.placements)
+            if pl.is_shard(0) and mesh.size(i) > 1
+            and w_gate.placements[i] == Replicate()]
+    n_rows = math.prod(mesh.size(i) for i in rows)
+    if b % n_rows or (b // n_rows * s) % group:
+        rows = []
+    coord = mesh.get_coordinate()
+    split = [i for i, pl in enumerate(w_gate.placements)
+             if pl.is_shard(0) or pl.is_shard(2)]
+    # The routing runs alike on every rank of a weight-sharded dim; the
+    # fractions count once there, on its first rank.
+    lead = float(all(coord[i] == 0 for i in split))
+    expert_dim = next((i for i, pl in enumerate(w_gate.placements)
+                       if pl.is_shard(0)), None)
+    e, ddt = cfg.n_experts, getattr(torch, cfg.moe_dispatch_dtype)
+    c = _capacity(group, cfg)
+
+    def local(x, router, w_gate, w_up, w_down):
+        b_l = x.shape[0]
+        xg = x.reshape(b_l * s // group, group, d)
+        gate, idx, probs = _route_parts(router, cfg, xg)
+        frac_tokens = _one_hot(idx[..., 0], e).sum(dim=(0, 1)) \
+            * (lead / tokens)
+        frac_probs = probs.sum(dim=(0, 1)) * (lead / tokens)
+        dispatch, combine = _dispatch_combine(gate, idx, cfg, c)
+        xin = torch.einsum("gtec,gtd->gecd", dispatch.to(ddt),
+                           xg.to(ddt)).to(cfg.dtype)
+        if expert_dim is not None:
+            n = w_gate.shape[0]
+            mine = slice(coord[expert_dim] * n, (coord[expert_dim] + 1) * n)
+            xin, combine = xin[:, mine], combine[:, :, mine]
+        out_e = _expert_ffn(xin, w_gate, w_up, w_down)
+        out = torch.einsum("gtec,gecd->gtd", combine.to(ddt), out_e.to(ddt))
+        return out.reshape(b_l, s, d).to(x.dtype), frac_tokens, frac_probs
+
+    ins, grads, out_pl, frac_pl = ([[] for _ in range(5)],
+                                   [[] for _ in range(5)], [], [])
+    for i, pl in enumerate(w_gate.placements):
+        frac_pl.append(Partial() if i in rows or i in split
+                       else Replicate())
+        if i in rows:
+            x_in, w_in, o = Shard(0), (Replicate(),) * 3, Shard(0)
+            x_g, r_g, w_g = Shard(0), Partial(), (Partial(),) * 3
+        elif pl.is_shard(0) or pl.is_shard(2):        # experts, or hidden
+            x_in = Replicate()
+            w_in = ((Shard(0),) * 3 if pl.is_shard(0)
+                    else (Shard(2), Shard(2), Shard(1)))
+            o, x_g, r_g, w_g = Partial(), Partial(), Partial(), w_in
+        else:                                          # alike on every rank
+            x_in, w_in, o = Replicate(), (Replicate(),) * 3, Replicate()
+            x_g, r_g, w_g = Replicate(), Replicate(), (Replicate(),) * 3
+        for lst, v in zip(ins, (x_in, Replicate()) + w_in):
+            lst.append(v)
+        for lst, v in zip(grads, (x_g, r_g) + w_g):
+            lst.append(v)
+        out_pl.append(o)
+    fn = local_map(local, out_placements=(out_pl, frac_pl, frac_pl),
+                   in_placements=tuple(ins), in_grad_placements=tuple(grads),
+                   device_mesh=mesh, redistribute_inputs=True)
+    out, frac_tokens, frac_probs = fn(x, p["router"], w_gate, p["w_up"],
+                                      p["w_down"])
+    return out, e * torch.sum(frac_tokens * frac_probs)
 
 
 def moe_forward_ragged(p: Params, cfg: ArchConfig, x: torch.Tensor

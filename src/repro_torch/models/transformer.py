@@ -238,7 +238,9 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     ffn_apply = ffn_apply or _dense_ffn(cfg, backend)
     x = _embed(params, cfg, tokens, prefix_embed)
     positions = torch.arange(x.shape[1], device=x.device)
-    cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
+    # Under a mesh the arena replicates; each write takes its layout.
+    cache = cm.replicated_like(
+        init_cache(cfg, x.shape[0], cache_len, device=x.device), x)
     for layer in range(cfg.n_layers):
         x, (k, v) = block_prefill(cm.layer_slice(params["blocks"], layer),
                                   cfg, x, positions, cache_len, ffn_apply,

@@ -58,11 +58,10 @@ def cross_attn_init(generator: torch.Generator, cfg: ArchConfig) -> Params:
 def cross_kv(p: Params, cfg: ArchConfig, enc: torch.Tensor, *,
              backend: kops.Backend = "auto"
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, f, _ = enc.shape
-    k = cm.linear(p["wk"], enc, backend=backend).reshape(
-        b, f, cfg.n_kv_heads, cfg.d_head)
-    v = cm.linear(p["wv"], enc, backend=backend).reshape(
-        b, f, cfg.n_kv_heads, cfg.d_head)
+    k = cm.split_heads(cm.linear(p["wk"], enc, backend=backend),
+                       cfg.n_kv_heads, cfg.d_head)
+    v = cm.split_heads(cm.linear(p["wv"], enc, backend=backend),
+                       cfg.n_kv_heads, cfg.d_head)
     return k, v
 
 
@@ -70,8 +69,8 @@ def cross_attn_apply(p: Params, cfg: ArchConfig, x: torch.Tensor,
                      k: torch.Tensor, v: torch.Tensor, *,
                      backend: kops.Backend = "auto") -> torch.Tensor:
     b, s, _ = x.shape
-    q = cm.linear(p["wq"], x, backend=backend).reshape(
-        b, s, cfg.n_heads, cfg.d_head)
+    q = cm.split_heads(cm.linear(p["wq"], x, backend=backend), cfg.n_heads,
+                       cfg.d_head)
     mask = torch.ones((s, k.shape[1]), dtype=torch.bool, device=x.device)
     out = cm.gqa_attention(q, k, v, mask)
     return cm.linear(p["wo"], out.reshape(b, s, -1), backend=backend)
@@ -119,7 +118,8 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
     """frames (B, F, d_model) stub embeddings -> the encoder output."""
     b, f, _ = frames.shape
     positions = torch.arange(f, device=frames.device)
-    x = frames.to(cfg.dtype) + sinusoids(positions, cfg.d_model).to(cfg.dtype)
+    pe = cm.replicated_like(sinusoids(positions, cfg.d_model), frames)
+    x = frames.to(cfg.dtype) + pe.to(cfg.dtype)
     acfg = _attn_cfg(cfg)
     mask = torch.ones((f, f), dtype=torch.bool, device=frames.device)
     for blk in cm.unstack(params["enc_blocks"], cfg.n_layers):
@@ -141,7 +141,7 @@ def _embed(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
            pe: torch.Tensor) -> torch.Tensor:
     """Token embeddings plus the position encoding ``pe`` (broadcast)."""
     x = cm.embed(params["embed"], tokens).to(cfg.dtype)
-    return x + pe.to(cfg.dtype)
+    return x + cm.replicated_like(pe, x).to(cfg.dtype)
 
 
 def _cross_and_mlp(blk: Params, cfg: ArchConfig, x: torch.Tensor,
@@ -221,7 +221,9 @@ def prefill(params: Params, cfg: ArchConfig, frames: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x = _embed(params, cfg, tokens, sinusoids(positions, cfg.d_model))
     acfg = _attn_cfg(cfg)
-    cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
+    # Under a mesh the arena replicates; each write takes its layout.
+    cache = cm.replicated_like(
+        init_cache(cfg, x.shape[0], cache_len, device=x.device), x)
     for layer in range(cfg.n_layers):
         blk = cm.layer_slice(params["dec_blocks"], layer)
         kc, vc = cross_kv(blk["cross"], cfg, enc, backend=backend)

@@ -12,6 +12,16 @@ leaves (quantized weights) are not updated and their moments are 0-d zeros.
 ``eps`` after dividing by ``sqrt(bc2)``, keeps moments in the parameter's
 dtype and has no global-norm clip.
 
+On a mesh (``launch.steps.make_sharded_train_step``) params are DTensors.
+Each moment is then a DTensor with its param's placements (a 0-d moment
+replicates: ``launch.shardings.opt_shardings``), the update runs on each
+rank's local shards of gradient, moments and param (it is elementwise once
+the clip's scale is known), and each param shard is written in place.  The
+gradients must carry their params' placements (no pending sums).
+:func:`global_norm` sums each leaf over the mesh, leaf by leaf in the
+reference's order.  The step stays a host 0-d int32 on every rank: every
+rank counts the same steps, so it is replicated by construction.
+
 The reference's jitted train step donates the optimizer state; here
 ``update`` writes the new moments into the state's moment tensors, in place,
 and returns a state holding them with the next step.  Copy a state (its
@@ -25,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Callable, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 Tree = Any
 
@@ -63,8 +74,36 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 
 
 def _zeros_state(p: torch.Tensor) -> torch.Tensor:
+    if isinstance(p, DTensor):
+        if _trainable(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        mesh = p.device_mesh
+        return DTensor.from_local(
+            torch.zeros((), dtype=torch.float32, device=p.to_local().device),
+            mesh, [Replicate()] * mesh.ndim, run_check=False)
     shape = p.shape if _trainable(p) else ()
     return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+
+def _shardwise(fn: Callable) -> Callable:
+    """``fn(g, *state, p)``, an elementwise update of one leaf, run on the
+    local shards when ``p`` is a trainable DTensor (every operand with its
+    placements); the update comes back as a DTensor like ``p``."""
+    def run(g, *rest):
+        p = rest[-1]
+        if not (isinstance(p, DTensor) and _trainable(p)):
+            return fn(g, *rest)
+        for t in (g,) + rest:
+            if t.placements != p.placements:
+                raise ValueError(
+                    f"an update needs every operand with its param's "
+                    f"placements {p.placements}, got {t.placements} (a "
+                    "gradient is redistributed to its param's first)")
+        local = fn(*(t.to_local() for t in (g,) + rest))
+        return DTensor.from_local(local, p.device_mesh, p.placements,
+                                  run_check=False)
+
+    return run
 
 
 def _init_state(params: Tree) -> OptState:
@@ -98,6 +137,7 @@ def adamw(lr: Callable[[torch.Tensor], torch.Tensor] | float, *,
         bc2 = 1 - b2t ** stepf
         neg_lr = -lr_fn(step)
 
+        @_shardwise
         def one(g, m, v, p):
             if not _trainable(p):
                 return torch.zeros_like(p)
@@ -123,6 +163,7 @@ def sgd(lr: float, momentum: float = 0.0):
     updates ``-lr * mu`` in each parameter's dtype."""
     def update(grads: Tree, state: OptState, params: Tree
                ) -> Tuple[Tree, OptState]:
+        @_shardwise
         def one(g, m, p):
             if not _trainable(p):
                 return torch.zeros_like(p)
@@ -151,11 +192,15 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """``sqrt`` of the f32 sum of every leaf's f32 sum of squares, leaf by
-    leaf in the reference's order (one leaf's f32 copy at a time)."""
+    leaf in the reference's order (one leaf's f32 copy at a time).  A
+    DTensor leaf's sum is taken over the whole mesh; the result is a plain
+    0-d tensor on every rank."""
     total = None
     with torch.no_grad():
         for x in leaves(tree):
             s = torch.sum(torch.square(x.to(torch.float32)))
+            if isinstance(s, DTensor):
+                s = s.full_tensor()
             total = s if total is None else total + s
     if total is None:
         return torch.zeros((), dtype=torch.float32)

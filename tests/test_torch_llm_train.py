@@ -273,7 +273,10 @@ def test_launch_train_on_cpu(arch, tmp_path, capsys):
 
 
 def test_launch_train_refuses_the_mesh_and_the_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """``--production-mesh`` needs the (16, 16) mesh's 256 ranks: with no
+    process group (none here) it raises the mesh's own error; so does a
+    launch without a card."""
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
         launch_train.main(["--arch", "qwen3_8b", "--reduced",
                            "--production-mesh", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
