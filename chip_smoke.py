@@ -293,10 +293,11 @@ stdout; a failing phase raises and the script exits non-zero:
              model in f32 through the wave Engine at (k)'s shape (8 x 1024
              prompt tokens, 32 new): 48 ssd_scan launches, greedy tokens
              equal to backend={"ssd_scan": "ref"}'s, prefill logits within
-             1e-3.  (J) examples/train_llm.py's default model whole (12
-             layers, d 512, 8/4 heads, d_ff 1408, vocab 32768, ~55M
-             params), bf16, 300 steps of 8 x 256 tokens at lr 6e-4, warmup
-             50: the last 5 losses' mean at least 0.3 below the first 5's.
+             1e-3.  (J) repro_torch.examples.train_llm's default model
+             whole (12 layers, d 512, 8/4 heads, d_ff 1408, vocab 32768,
+             ~55M params), bf16, 300 steps of 8 x 256 tokens at lr 6e-4,
+             warmup 50, through the module's train(): the last 5 losses'
+             mean at least 0.3 below the first 5's.
              (K) ``python -m repro_torch.launch.train --arch mamba2_370m
              --reduced --steps 5 --ckpt-dir <tmp> --ckpt-every 5`` exits 0
              and leaves LATEST = 5.
@@ -322,6 +323,49 @@ stdout; a failing phase raises and the script exits non-zero:
              counted.  One line per run: backend, ranks and their
              devices, windows/s, p50/p99 verdict latency, deadline misses,
              launches and gathers a step by rank, gather ms a step.
+16. train_mesh — the sharded LLM train step (train_mesh_phase): runs
+             (R)-(V), each held to the unsharded step on the same card;
+             (U)'s three launcher processes run at once.
+17. examples — the port's user entry points, repro_torch.examples, each
+             driven in this process through its module's main(argv) as a
+             user runs it (printed lines captured), at full model width
+             (400-64-32-16-2 and the four heads), each training at its
+             module's budget on the card; every data set is built once
+             (the modules' build_dataset cached for the phase), and the
+             launches of a main's stages are read apart by wrapping the
+             module's functions.  (W) detect_fleet at its defaults: 16
+             plants x 1600 cycles, every scenario, the SINT classifier at
+             the full training budget: one fused_mlp launch a verdict step
+             of run_fleet, the serve's other launches its warmup's,
+             verdicts equal to the same detectors served with
+             backend="ref" (labels and probabilities bit-equal, scores
+             within TOL["REAL"]), the per-plant table (onset, first flag,
+             latency, pre-onset FPs) on the run's line.  (X) --mixed
+             --plants 64: one grouped_fused_mlp launch a step, verdicts
+             equal to the plain twin's.  (Y) --detector ae --drift over
+             baseline, seasonal-drift, tb0-spoof, wd-spoof, 16 plants: one
+             fused_mlp launch a step, verdicts and the live threshold after
+             the drift equal to the plain twin's.  (Z) --async --fast
+             --plants 16: verdicts and probabilities equal to the
+             synchronous serve of the same detectors, sync and async
+             sustained windows/s.  (AA) --devices 2 --smoke: two spawned
+             ranks sharing the card over gloo (NCCL on two cards), their
+             table and labels equal to one rank's from the same trained
+             params.  (AB) casestudy_msf at its full budget, then with
+             --quant SINT, the classifier trained once (the second main
+             reuses it): test accuracy > 0.70 beside the paper's 0.9368,
+             the port's two fused_mlp launches (and the quantized
+             accuracy's one), the 4-segment SlidingWindowDetector deployed
+             with no kernel launch: the attack detected, its cycle and
+             latency beside the paper's 5.0 s, the Wd statistics, process
+             output identical.  (AC) export_st trained, --detector mlp and
+             --detector ae --fast (SINT): exit code 0 (main exits 1 on a
+             failure), body difference 0.0.  (AD) serve_llm --arch
+             qwen3_8b --quant SINT --engine continuous and --arch
+             mamba2_370m --quant SINT (reduced, as the reference): qmatmul
+             (and ssd_scan) launched, greedy tokens equal to the same
+             params with backend={"qmatmul": "ref"}.  (AE) ``python -m
+             repro_torch.examples.quickstart`` exits 0 with its two checks.
 
 Then the wall seconds of each phase and in all, and each trainer's wall
 seconds (``{"phase": "seconds"}``),
@@ -330,6 +374,7 @@ the main-path runs), the nvidia-smi line and, last, ``{"ok": true,
 "device": ...}``.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -446,8 +491,8 @@ WHISPER_CPU_STEPS = 8
 # widths cut to LT_QWEN_LAYERS, LT_QWEN_STEPS steps of LT_BATCH x LT_SEQ
 # tokens; (H) one step per family in LT_FAMILIES, reduced, f32, card
 # against the CPU; (I) mamba2-370m uncut, LT_MAMBA_STEPS steps, then
-# LT_RESUME_STEPS from a checkpoint; (J) examples/train_llm.py's default
-# model (LT_SMALL) and schedule; (K) the launcher.
+# LT_RESUME_STEPS from a checkpoint; (J) repro_torch.examples.train_llm's
+# default model and schedule; (K) the launcher.
 LT_BATCH, LT_SEQ = 8, 1024
 LT_QWEN_LAYERS, LT_QWEN_STEPS, LT_QWEN_LR, LT_QWEN_WARMUP = 8, 20, 3e-4, 5
 LT_FAMILIES = ("qwen3_8b", "granite_moe_1b_a400m", "mamba2_370m",
@@ -455,10 +500,7 @@ LT_FAMILIES = ("qwen3_8b", "granite_moe_1b_a400m", "mamba2_370m",
 LT_CPU_BATCH, LT_CPU_SEQ = 2, 64
 LT_MAMBA_STEPS, LT_RESUME_STEPS, LT_MAMBA_LR, LT_MAMBA_WARMUP = 10, 2, \
     3e-4, 2
-LT_SMALL = dict(n_layers=12, d_model=512, n_heads=8, n_kv_heads=4,
-                d_ff=1408, vocab=32768)
-LT_SMALL_STEPS, LT_SMALL_SEQ, LT_SMALL_LR, LT_SMALL_WARMUP = 300, 256, \
-    6e-4, 50
+LT_SMALL_STEPS, LT_SMALL_SEQ = 300, 256
 # The drop of tests/test_system.py::test_loss_decreases: the mean of the
 # last 5 losses at least this far below the first 5's.
 LT_SMALL_MARGIN = 0.3
@@ -482,6 +524,14 @@ TM_LAUNCH_STEPS = 5
 # rank per card over NCCL, at lr 3e-4 (warmup 1), so the loss falls.
 TM_UNCUT = ("qwen3_8b_uncut_bf16", QWEN_ARCH, "bfloat16", (1, 4), 8, 1024)
 TM_UNCUT_LR = 3e-4
+# Phase 17: the user entry points (module docstring).  (X) serves
+# EX_MIXED_PLANTS plants, (Y) and (Z) EX_ASYNC_PLANTS; (AD) runs serve_llm
+# with each argv of EX_LLM_RUNS.
+EX_MIXED_PLANTS, EX_ASYNC_PLANTS = 64, 16
+EX_DRIFT_SCENARIOS = "baseline,seasonal-drift,tb0-spoof,wd-spoof"
+EX_LLM_RUNS = (["--arch", QWEN_ARCH, "--quant", "SINT", "--engine",
+                "continuous"],
+               ["--arch", MAMBA_ARCH, "--quant", "SINT"])
 
 
 def emit(obj):
@@ -1935,9 +1985,11 @@ def llm_train_phase(dev, smi):
     """Phase 14 (module docstring): runs (G)-(K), the LLM training stack on
     the card.  Returns the launch counts of the runs."""
     import gc
+    import io
     import shutil
     import tempfile
     from repro_torch.checkpoint import latest_step, restore, save
+    from repro_torch.examples import train_llm
     from repro_torch.configs.base import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.steps import (loss_and_grads, make_optimizer,
@@ -2256,35 +2308,35 @@ def llm_train_phase(dev, smi):
         "first_tokens": [c.tokens[:8].tolist() for c in done]})
     del engine, plain, served, logits, want
 
-    # -- (J) the reference example's ~55M qwen3-family model, whole --------
+    # -- (J) repro_torch.examples.train_llm's ~55M qwen3-family model ------
     fresh()
-    jcfg = get_config(QWEN_ARCH).with_(**LT_SMALL)
-    gen.manual_seed(0)
-    api = get_model(jcfg)
-    params = api.init(gen)
-    opt_init, opt_update = make_optimizer(LT_SMALL_LR,
-                                          warmup=LT_SMALL_WARMUP,
-                                          steps=LT_SMALL_STEPS)
-    step = make_train_step(api, opt_update)
-    data = stream(jcfg, LT_SMALL_SEQ, LT_BATCH, 0)
-    batches = [on_card(next(data)) for _ in range(LT_SMALL_STEPS)]
+    jcfg = train_llm.small_config()
     t0 = time.perf_counter()
-    (params, _, losses, norms, secs), counts = counted(
-        lambda: run_steps(step, params, opt_init(params), batches))
+    with contextlib.redirect_stdout(io.StringIO()):
+        run, counts = counted(lambda: train_llm.train(
+            jcfg, steps=LT_SMALL_STEPS, batch=LT_BATCH, seq=LT_SMALL_SEQ,
+            device=dev))
     wall = time.perf_counter() - t0
     check_counts("J", counts, none)
+    losses = run.losses
+    if not np.isfinite(losses + run.grad_norms).all():
+        raise AssertionError(f"J: non-finite loss or gradient norm: "
+                             f"{losses} {run.grad_norms}")
     first, last = learned("J", losses, LT_SMALL_MARGIN)
     emit_row("J_example_55m_train", {
-        "model": "qwen3 family, examples/train_llm.py's default",
-        **LT_SMALL, "params": sum(p.numel() for p in leaves(params)),
+        "model": "qwen3 family, repro_torch.examples.train_llm's default",
+        **{k: getattr(jcfg, k) for k in ("n_layers", "d_model", "n_heads",
+                                         "n_kv_heads", "d_ff", "vocab")},
+        "params": sum(p.numel() for p in leaves(run.params)),
         "batch": LT_BATCH, "seq": LT_SMALL_SEQ, "steps": LT_SMALL_STEPS,
-        "lr": LT_SMALL_LR, "warmup": LT_SMALL_WARMUP, "wall_s": wall,
+        "lr": train_llm.LR, "warmup": train_llm.WARMUP, "wall_s": wall,
         "mean_loss_first5": first, "mean_loss_last5": last,
         "required_drop": LT_SMALL_MARGIN, "losses_every_50": losses[::50],
         "final_loss": losses[-1], "launches": counts,
-        **{k: v for k, v in step_row(secs, LT_BATCH * LT_SMALL_SEQ).items()
+        **{k: v for k, v in step_row(run.step_s,
+                                     LT_BATCH * LT_SMALL_SEQ).items()
            if k != "step_ms"}})
-    del params, step, batches, api
+    del run
 
     # -- (K) the launcher on the card --------------------------------------
     fresh()
@@ -2819,14 +2871,18 @@ def train_mesh_phase(dev, smi):
         return re.findall(r"^step +\d+ loss (\S+) gnorm (\S+)", text,
                           re.MULTILINE)
 
-    alone, alone_s = launched(
-        [sys.executable, "-m", "repro_torch.launch.train", *argv])
-    grouped, grouped_s = launched(
-        torchrun + ["--nproc-per-node=1", "-m", "repro_torch.launch.train",
-                    *argv])
-    refused, _ = launched(
-        torchrun + [f"--nproc-per-node={TM_WORLD}", "-m",
-                    "repro_torch.launch.train", *argv, "--production-mesh"])
+    # The three launches run at once (each process's own start-up is most
+    # of its wall); a process's numbers do not depend on the others.
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        runs = [pool.submit(launched, cmd) for cmd in (
+            [sys.executable, "-m", "repro_torch.launch.train", *argv],
+            torchrun + ["--nproc-per-node=1", "-m",
+                        "repro_torch.launch.train", *argv],
+            torchrun + [f"--nproc-per-node={TM_WORLD}", "-m",
+                        "repro_torch.launch.train", *argv,
+                        "--production-mesh"])]
+    (alone, alone_s), (grouped, grouped_s), (refused, _) = [
+        r.result() for r in runs]
     want, got = losses_of(alone.stdout), losses_of(grouped.stdout)
     if (alone.returncode or grouped.returncode or len(want)
             != TM_LAUNCH_STEPS or got != want):
@@ -2843,7 +2899,7 @@ def train_mesh_phase(dev, smi):
     emit_row("U_launch_train_torchrun", {
         "argv": argv, "nproc": 1, "backend": "nccl", "mesh": "host (1, 1)",
         "losses_gnorms": got, "equal_to_no_group": True,
-        "wall_s": {"no_group": alone_s, "torchrun": grouped_s},
+        "wall_s_concurrent": {"no_group": alone_s, "torchrun": grouped_s},
         "production_mesh_on_4_ranks": "RuntimeError: needs 256 ranks"})
 
     # -- (V) the dry run on a fake (16, 16) group --------------------------
@@ -2972,6 +3028,343 @@ def train_mesh_uncut(dev, smi):
           "devices": [r["device"] for r in ranks],
           "collectives_step1_rank0": ranks[0]["collectives_step1"],
           "wall_s": wall, "launches": launches})
+    return launches
+
+
+def fleet_row(run):
+    """A detect_fleet serve's numbers (repro_torch.examples.detect_fleet
+    .FleetRun): steps, windows, windows/s, p50/p99 verdict latency, deadline
+    misses, launches a step as the engine counts them."""
+    st = run.stats
+    return {"steps": st.steps, "windows": st.windows,
+            "windows_per_s": st.windows_per_s(),
+            "latency_p50_ms": st.latency_p(50) * 1e3,
+            "latency_p99_ms": st.latency_p(99) * 1e3,
+            "deadline_misses": st.deadline_misses,
+            "dispatches_per_step": st.dispatches / max(st.steps, 1)}
+
+
+def verdict_labels(verdicts):
+    return [(v.stream, v.cycle, v.pred) for v in verdicts]
+
+
+def same_labels(run, got, want):
+    if verdict_labels(got) != verdict_labels(want):
+        bad = sum(a != b for a, b in zip(verdict_labels(got),
+                                         verdict_labels(want)))
+        raise AssertionError(f"{run}: {len(got)} verdicts against "
+                             f"{len(want)}, {bad} labels differ")
+
+
+def same_verdicts(run, got, want):
+    """Two serves' verdicts: labels equal, the classifier's probabilities
+    bit-equal (its SINT logits are), the score heads' scores and thresholds
+    within TOL["REAL"], as every earlier phase holds score outputs.
+    Returns the scores' largest relative difference (None: no scores)."""
+    same_labels(run, got, want)
+    if [v.prob for v in got] != [v.prob for v in want]:
+        raise AssertionError(f"{run}: classifier probabilities differ")
+    err = None
+    for key in ("score", "threshold"):
+        a = np.array([getattr(v, key) for v in got
+                      if getattr(v, key) is not None], np.float64)
+        b = np.array([getattr(v, key) for v in want
+                      if getattr(v, key) is not None], np.float64)
+        if a.shape != b.shape:
+            raise AssertionError(f"{run}: {a.shape} {key}s against "
+                                 f"{b.shape}")
+        np.testing.assert_allclose(a, b, rtol=TOL["REAL"], atol=TOL["REAL"],
+                                   err_msg=f"{run}: {key}s")
+        if key == "score" and a.size:
+            err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b),
+                                                          1e-30)))
+    return err
+
+
+@contextlib.contextmanager
+def patched(mod, name, wrap):
+    """``mod.name`` replaced by ``wrap(mod.name)`` inside the block."""
+    fn = getattr(mod, name)
+    setattr(mod, name, wrap(fn))
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def recording(record):
+    """A ``wrap`` for :func:`patched`: each call's launches and wall seconds
+    appended to ``record`` (the counts read before and after the call,
+    never reset, so a caller's counted_into sees every launch)."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            before, t0 = read_counts(), time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            after = read_counts()
+            record.append({"launches": {k: after[k] - before[k]
+                                        for k in COUNTED},
+                           "s": time.perf_counter() - t0})
+            return out
+        return call
+    return wrap
+
+
+def less(a, b):
+    return {k: a[k] - b[k] for k in COUNTED}
+
+
+def examples_phase(dev, smi):
+    """Phase 17 (module docstring): runs (W)-(AE), the port's user entry
+    points (repro_torch.examples) on the card, each through its module's
+    ``main(argv)``.  Returns the launch counts of the runs."""
+    import functools as ft
+    import io
+    import tempfile
+    from repro_torch import sim
+    from repro_torch.examples import (casestudy_msf, detect_fleet, export_st,
+                                      serve_llm)
+
+    launches = dict.fromkeys(COUNTED, 0)
+    on_card = ["--device", DEVICE]
+
+    def emit_row(run, row):
+        emit({"phase": "examples", "run": run, "nvidia_smi": smi, **row})
+
+    def quiet(fn):
+        """``fn()`` with its printed lines captured: (result, lines)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        return out, buf.getvalue().splitlines()
+
+    def fleet_main(run_name, argv, kernel, twin=True):
+        """``detect_fleet.main(argv)`` on the card, as a user runs it, its
+        launches read apart by stage: the training, the serve, and the
+        serve's ``run_fleet`` (one ``kernel`` launch a verdict step).  The
+        serve's other launches are its warmup's, checked against a fresh
+        engine's warmup (under --async the side-by-side's are added).  With
+        ``twin`` the trained detectors serve the same fleet again with
+        every kernel's plain version: :func:`same_verdicts`."""
+        args = detect_fleet.parse_args(argv + on_card)
+        trained, served, ran = [], [], []
+        t0 = time.perf_counter()
+        with patched(detect_fleet, "train", recording(trained)), \
+                patched(detect_fleet, "serve", recording(served)), \
+                patched(detect_fleet, "run_fleet", recording(ran)):
+            ((detectors, run), total), lines = quiet(lambda: counted_into(
+                launches, lambda: detect_fleet.main(argv + on_card)))
+        wall = time.perf_counter() - t0
+        steps = run.stats.steps
+        check_counts(run_name, ran[0]["launches"],
+                     expect(**{kernel: steps}))
+        warm = less(served[0]["launches"], ran[0]["launches"])
+        if not args.async_serve:
+            fresh = detect_fleet.engine_factory(args, detectors)(0)
+            known = counted_into(dict.fromkeys(COUNTED, 0), fresh.warmup)[1]
+            check_counts(f"{run_name} warmup", warm, known)
+        check_counts(f"{run_name} main", total,
+                     {k: trained[0]["launches"][k] + served[0]["launches"][k]
+                      for k in COUNTED})
+        rows = detect_fleet.plant_table(detect_fleet.make_fleet(args),
+                                        run.verdicts, run.groups)
+        head = next(i for i, ln in enumerate(lines)
+                    if ln.startswith("== serving"))
+        table = lines[head + 1:head + 2 + len(rows)]
+        if table != detect_fleet.format_table(rows, args.mixed):
+            raise AssertionError(f"{run_name}: the printed table is not "
+                                 f"the run's")
+        row = {"argv": argv, "plants": args.plants, "cycles": args.cycles,
+               "main_s": wall, "train_s": trained[0]["s"],
+               "serve_s": served[0]["s"], "run_fleet_s": ran[0]["s"],
+               "train_launches": trained[0]["launches"],
+               "serve_launches": served[0]["launches"],
+               "run_fleet_launches": ran[0]["launches"],
+               "launches_per_step": ran[0]["launches"][kernel] / steps,
+               **fleet_row(run),
+               "table": [dataclasses.asdict(r) for r in rows],
+               "train_lines": lines[:head], "serve_header": lines[head],
+               "report_tail": lines[head + 2 + len(rows):]}
+        if twin:
+            engine = detect_fleet.engine_factory(args, detectors,
+                                                 backend="ref")(0)
+            engine.warmup()
+            plain = detect_fleet.run_fleet(args, engine)
+            row["scores_max_rel_err_to_plain"] = same_verdicts(
+                run_name, run.verdicts, plain.verdicts)
+            row["verdicts_equal_to_plain"] = True
+            if run.live_threshold is not None:
+                np.testing.assert_allclose(
+                    run.live_threshold, plain.live_threshold,
+                    rtol=TOL["REAL"], err_msg=f"{run_name}: live threshold")
+                row["plain_live_threshold"] = plain.live_threshold
+        return args, detectors, run, row
+
+    with contextlib.ExitStack() as stack:
+        # Every data set is built once for the phase.
+        cached = ft.lru_cache(maxsize=None)(sim.build_dataset)
+        for mod in (detect_fleet, export_st, casestudy_msf):
+            stack.enter_context(patched(mod, "build_dataset",
+                                        lambda _: cached))
+
+        # -- (W) detect_fleet at its defaults ------------------------------
+        _, _, _, row = fleet_main("W", [], "fused_mlp")
+        emit_row("W_detect_fleet", row)
+
+        # -- (X) the mixed fleet, one grouped_fused_mlp launch a step -------
+        _, _, run, row = fleet_main(
+            "X", ["--mixed", "--plants", str(EX_MIXED_PLANTS)], "grouped_mlp")
+        emit_row("X_detect_fleet_mixed", {**row,
+                                          "group_windows": run.group_windows})
+
+        # -- (Y) the autoencoder under drift, thresholds adapting ----------
+        _, _, run, row = fleet_main(
+            "Y", ["--detector", "ae", "--drift", "--scenarios",
+                  EX_DRIFT_SCENARIOS, "--plants", str(EX_ASYNC_PLANTS)],
+            "fused_mlp")
+        if run.live_threshold is None or not np.isfinite(run.live_threshold):
+            raise AssertionError(f"Y: live threshold {run.live_threshold}")
+        emit_row("Y_detect_fleet_ae_drift", {
+            **row, "live_threshold": run.live_threshold,
+            "offline_threshold": run.offline_threshold})
+
+        # -- (Z) double-buffered serving against synchronous ----------------
+        _, detectors, run, row = fleet_main(
+            "Z", ["--async", "--fast", "--plants", str(EX_ASYNC_PLANTS)],
+            "fused_mlp", twin=False)
+        sync = detect_fleet.serve_fleet(detect_fleet.parse_args(
+            ["--fast", "--plants", str(EX_ASYNC_PLANTS)] + on_card),
+            detectors)
+        same_verdicts("Z", run.verdicts, sync.verdicts)
+        emit_row("Z_detect_fleet_async", {
+            **row, "sync": fleet_row(sync),
+            "sustained_windows_per_s": {"sync": run.sustained[0],
+                                        "async": run.sustained[1]},
+            "async_equal_to_sync": True})
+
+        # -- (AA) two ranks sharing the card against one --------------------
+        t0 = time.perf_counter()
+        (detectors, sharded), _ = quiet(lambda: detect_fleet.main(
+            ["--devices", "2", "--smoke"] + on_card))
+        main_s = time.perf_counter() - t0
+        one = detect_fleet.parse_args(["--smoke"] + on_card)
+        single = detect_fleet.serve(one, detectors)
+        fleet = detect_fleet.make_fleet(one)
+        table = detect_fleet.plant_table(fleet, sharded.verdicts)
+        same_labels("AA", sharded.verdicts, single.verdicts)
+        if table != detect_fleet.plant_table(fleet, single.verdicts):
+            raise AssertionError("AA: the two-rank table differs")
+        emit_row("AA_detect_fleet_devices_2", {
+            "ranks": 2, "backend": ("nccl" if torch.cuda.device_count() >= 2
+                                    else "gloo"),
+            "plants": one.plants, "cycles": one.cycles,
+            "main_s_with_spawn": main_s, "rank0": fleet_row(sharded),
+            "gathers_rank0": sharded.stats.collectives,
+            "one_rank": fleet_row(single),
+            "table": [dataclasses.asdict(r) for r in table],
+            "table_equal_to_one_rank": True,
+            "launches": "in the ranks' processes, not counted here"})
+
+        # -- (AB) the §7 case study at its full budget, REAL and SINT ------
+        # The detector is trained once: the second main reuses it.
+        trained, deployed = [], {}
+        stack.enter_context(patched(casestudy_msf, "train_casestudy",
+                                    ft.lru_cache(maxsize=None)))
+        stack.enter_context(patched(casestudy_msf, "train_casestudy",
+                                    recording(trained)))
+        for scheme, argv, port_quant in (("REAL", [], expect(fused_mlp=2)),
+                                         ("SINT", ["--quant", "SINT"],
+                                          expect(fused_mlp=3))):
+            t0 = time.perf_counter()
+            (got, total), lines = quiet(lambda: counted_into(
+                launches, lambda: casestudy_msf.main(argv + on_card)))
+            wall = time.perf_counter() - t0
+            # port: two fused_mlp launches; quantize: one; deploy: none
+            check_counts(f"AB {scheme}",
+                         less(total, trained[-1]["launches"]), port_quant)
+            if not got["test_acc"] > 0.70:
+                raise AssertionError(f"AB: test accuracy {got['test_acc']}")
+            if not got["process_output_identical"]:
+                raise AssertionError(f"AB {scheme}: the defense moved Wd")
+            if got["first_detection"] is None:
+                raise AssertionError(f"AB {scheme}: the attack was not "
+                                     f"detected")
+            deployed[scheme] = {**got, "argv": argv, "main_s": wall,
+                                "train_s": trained[-1]["s"],
+                                "launches": total, "lines": lines}
+        emit_row("AB_casestudy_msf", {
+            "paper_test_acc": casestudy_msf.PAPER_TEST_ACC,
+            "paper_latency_s": casestudy_msf.PAPER_LATENCY_S,
+            "paper_cycles": {"injected": 436, "detected": 486},
+            **deployed})
+
+        # -- (AC) export_st, trained: the classifier and the autoencoder ----
+        for run_name, argv in (("AC_export_st_mlp_sint", ["--detector",
+                                                          "mlp"]),
+                               ("AC_export_st_ae_sint_fast",
+                                ["--detector", "ae", "--fast"])):
+            buf = io.StringIO()
+            with tempfile.TemporaryDirectory() as tmp:
+                t0 = time.perf_counter()
+                try:
+                    with contextlib.redirect_stdout(buf):
+                        res, counts = counted_into(
+                            launches, lambda: export_st.main(
+                                argv + ["--out-dir", tmp] + on_card))
+                    exit_code = 0
+                except SystemExit as exc:
+                    exit_code = exc.code
+                wall = time.perf_counter() - t0
+            lines = buf.getvalue().splitlines()
+            if exit_code != 0 or (res["scheme"] == "SINT"
+                                  and res["max_body_diff"] != 0.0):
+                raise AssertionError(f"{run_name}: exit {exit_code}: "
+                                     f"{lines[-8:]}")
+            emit_row(run_name, {
+                "argv": argv, "exit_code": exit_code, "main_s": wall,
+                "launches": counts,
+                **{k: v for k, v in res.items() if k != "path"},
+                "report": lines[-5:]})
+
+        # -- (AD) serve_llm, reduced, against qmatmul's plain version -------
+        for argv in EX_LLM_RUNS:
+            t0 = time.perf_counter()
+            (tokens, counts), lines = quiet(lambda: counted_into(
+                launches, lambda: serve_llm.main(argv + on_card)))
+            wall = time.perf_counter() - t0
+            args = serve_llm.parse_args(argv + on_card)
+            api, params, extras = serve_llm.build(
+                args, backend={"qmatmul": "ref"})
+            plain, _ = quiet(lambda: serve_llm.serve(args, api, params,
+                                                     extras))
+            if tokens != plain:
+                raise AssertionError(f"AD {argv}: tokens differ from the "
+                                     f"qmatmul-plain run")
+            if not counts["qmatmul"] or (api.cfg.family == "ssm"
+                                         and not counts["ssd_scan"]):
+                raise AssertionError(f"AD {argv}: launches {counts}")
+            emit_row("AD_serve_llm", {
+                "argv": argv, "model": api.cfg.name,
+                "family": api.cfg.family, "reduced": True, "main_s": wall,
+                "launches": counts, "tokens_equal_to_qmatmul_plain": True,
+                "first_tokens": {u: t[:8] for u, t in tokens.items()},
+                "report": lines[-3:]})
+            del api, params, extras
+
+    # -- (AE) the quickstart, as a user runs it ---------------------------
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.quickstart"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": src})
+    wall = time.perf_counter() - t0
+    ticks = [ln for ln in proc.stdout.splitlines() if "✓" in ln]
+    if proc.returncode != 0 or len(ticks) != 2:
+        raise AssertionError(f"AE: quickstart exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    emit_row("AE_quickstart", {"exit_code": proc.returncode, "wall_s": wall,
+                               "checks": ticks})
     return launches
 
 
@@ -4321,6 +4714,11 @@ def main():
     for k in COUNTED:
         launches[k] += train_mesh_launches[k]
     phase_done("train_mesh")
+    # -- 17. examples: the user entry points of repro_torch.examples --------
+    ex_launches = examples_phase(dev, smi)
+    for k in COUNTED:
+        launches[k] += ex_launches[k]
+    phase_done("examples")
     emit({"phase": "seconds", "total": time.perf_counter() - started,
           **seconds, "trainer_wall_s": train_walls})
 
@@ -4348,6 +4746,7 @@ def main():
          "replaces": "src/repro/kernels/fused_mlp.py:234",
          "launches": launches["fused_mlp"],
          "mesh_launches": mesh_launches["fused_mlp"],
+         "examples_launches": ex_launches["fused_mlp"],
          "train_launches": train_launches["fused_mlp"],
          "max_abs_err": fused_err, "ms": ms(fused_head), "ms_source": source,
          "call_ms": fused_head["call_ms"], "plain_ms": fused_head["plain_ms"],
@@ -4361,7 +4760,8 @@ def main():
          "source": "src/repro_torch/kernels/csrc/qmatmul.cu",
          "replaces": "src/repro/kernels/qmatmul.py:69",
          "launches": launches["qmatmul"],
-         "mesh_launches": mesh_launches["qmatmul"], "max_abs_err": q_err,
+         "mesh_launches": mesh_launches["qmatmul"],
+         "examples_launches": ex_launches["qmatmul"], "max_abs_err": q_err,
          "ms": sum(ms(r) for r in q_main), "ms_source": source,
          "call_ms": sum(r["call_ms"] for r in q_main),
          "plain_ms": sum(r["plain_ms"] for r in q_main),
@@ -4380,6 +4780,7 @@ def main():
          "replaces": "src/repro/kernels/fused_mlp.py:473",
          "launches": launches["grouped_mlp"],
          "mesh_launches": mesh_launches["grouped_mlp"],
+         "examples_launches": ex_launches["grouped_mlp"],
          "train_launches": train_launches["grouped_mlp"],
          "max_abs_err": g_err,
          "ms": ms(g_head),
@@ -4397,6 +4798,7 @@ def main():
          "replaces": "src/repro/kernels/sparse_matmul.py:85",
          "launches": launches["sparse_matmul"],
          "mesh_launches": mesh_launches["sparse_matmul"],
+         "examples_launches": ex_launches["sparse_matmul"],
          "max_abs_err": s_err,
          "ms": ms(s_head),
          "ms_source": ("torch.profiler" if s_head["ms"] is not None
@@ -4413,6 +4815,7 @@ def main():
          "replaces": "src/repro/kernels/ssd_scan.py:85",
          "launches": launches["ssd_scan"],
          "mesh_launches": mesh_launches["ssd_scan"],
+         "examples_launches": ex_launches["ssd_scan"],
          "llm_launches": llm_launches["ssd_scan"],
          "families_launches": fam_launches["ssd_scan"],
          "llm_train_launches": train_llm_launches["ssd_scan"],
