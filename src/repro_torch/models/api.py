@@ -31,7 +31,9 @@ and ``{tokens (B, 1)}`` at decode (a ``"train"`` batch adds ``labels`` like
 ``tokens``).  ``backend`` (``'auto'|'kernel'|'ref'``, or a mapping from
 kernel name to one of them: ``ops.Backend``) goes to every kernel wrapper
 the model calls, and is kept on the API for the engines that call the
-model's layers themselves (``serving.cyclic``).
+model's layers themselves (``serving.cyclic``).  Each ``prefill``,
+``decode`` and ``decode_multi`` call is one ``model.forward`` span of
+:mod:`repro_torch.trace` (host times: the model's launch path).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels.ops import Backend
@@ -118,6 +121,14 @@ def _batch_specs(cfg: ArchConfig) -> Callable[[str, int, int], Batch]:
     return specs
 
 
+def _forward_span(fn: Callable) -> Callable:
+    """``fn`` inside a ``model.forward`` span."""
+    def traced(*args):
+        with trace.span("model.forward"):
+            return fn(*args)
+    return traced
+
+
 def get_model(cfg: ArchConfig, *, backend: Backend = "auto") -> ModelAPI:
     """The family's :class:`ModelAPI`, every kernel wrapper on its paths
     given ``backend``.  Serving and a loss without a gradient take
@@ -156,11 +167,11 @@ def get_model(cfg: ArchConfig, *, backend: Backend = "auto") -> ModelAPI:
             return mod.prefill(p, cfg, b["tokens"], cl, backend=backend)
 
     return ModelAPI(
-        cfg=cfg, init=init, loss=loss, prefill=prefill,
-        decode=lambda p, c, b, pos: mod.decode_step(
-            p, cfg, c, b["tokens"], pos, backend=backend),
-        decode_multi=lambda p, c, b, pos: mod.decode_step_multi(
-            p, cfg, c, b["tokens"], pos, backend=backend),
+        cfg=cfg, init=init, loss=loss, prefill=_forward_span(prefill),
+        decode=_forward_span(lambda p, c, b, pos: mod.decode_step(
+            p, cfg, c, b["tokens"], pos, backend=backend)),
+        decode_multi=_forward_span(lambda p, c, b, pos: mod.decode_step_multi(
+            p, cfg, c, b["tokens"], pos, backend=backend)),
         cache_specs=lambda bsz, cl: mod.cache_spec(cfg, bsz, cl),
         init_cache=init_cache, batch_specs=_batch_specs(cfg),
         backend=backend)

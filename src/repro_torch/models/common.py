@@ -30,6 +30,7 @@ import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import trace
 from repro_torch.core.layers import TORCH_INT_TYPES
 from repro_torch.core.quantize import quantize_tensor
 from repro_torch.kernels import ops as kops
@@ -104,7 +105,15 @@ def linear_init(generator: torch.Generator, d_in: int, d_out: int, *,
 
 def linear(p: Params, x: torch.Tensor, *, backend: kops.Backend = "auto"
            ) -> torch.Tensor:
-    """Apply a (possibly integer-quantized) linear layer to (..., d_in)."""
+    """Apply a (possibly integer-quantized) linear layer to (..., d_in):
+    one ``model.linear`` span of :mod:`repro_torch.trace` (the quantize,
+    the product and the cast back)."""
+    with trace.span("model.linear", device=x):
+        return _linear(p, x, backend)
+
+
+def _linear(p: Params, x: torch.Tensor, backend: kops.Backend
+            ) -> torch.Tensor:
     if "qw" in p:
         qw = p["qw"]
         lead = x.shape[:-1]

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import trace
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common as cm
@@ -277,9 +278,11 @@ def moe_forward_ragged(p: Params, cfg: ArchConfig, x: torch.Tensor
 def moe_forward(p: Params, cfg: ArchConfig, x: torch.Tensor,
                 dispatch: str = "einsum") -> torch.Tensor:
     """The FFN interface: the output alone (training adds the aux term
-    through :func:`forward_logits`)."""
+    through :func:`forward_logits`).  One ``model.moe`` span of
+    :mod:`repro_torch.trace`: router, dispatch, experts and combine."""
     fn = moe_forward_einsum if dispatch == "einsum" else moe_forward_ragged
-    out, _ = fn(p, cfg, x)
+    with trace.span("model.moe", device=x):
+        out, _ = fn(p, cfg, x)
     return out
 
 

@@ -46,6 +46,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import Device, resolve_device
 from repro_torch.models.api import ModelAPI
 from repro_torch.serving.cyclic import CyclicDecoder
@@ -64,7 +65,10 @@ class _Slot:
     req: Request
     out: List[int]
     admitted_s: float         # serve-clock time admission finished
-    prefill_s: float          # wall time of the admission prefill
+    # Host time to enqueue the admission's prefill and slot insert: nothing
+    # waits for the card there, so its device time runs on into the next
+    # step (the ``engine.admit`` span's events time it on the card).
+    prefill_s: float
 
 
 @dataclasses.dataclass
@@ -105,6 +109,13 @@ class ContinuousEngine:
     fall back to exact-length prefill.  ``cyclic_segments > 0`` routes the
     decode step through a CyclicDecoder with that many layer segments per
     step.
+
+    ``Completion.prefill_s`` is the host time an admission took to enqueue
+    its prefill and slot insert, not its device time: nothing waits for
+    the card until the step's read-back, so the admission's kernels finish
+    inside the next step's wall time.  With :mod:`repro_torch.trace` on,
+    each admission's ``engine.admit`` span and each step's ``engine.step``
+    span time them on the card.
     """
 
     def __init__(self, api: ModelAPI, params: Any, *, batch_slots: int,
@@ -189,6 +200,10 @@ class ContinuousEngine:
         Completions are returned in retirement order; ``finished_s`` is the
         per-request latency from serve() start (all requests are treated as
         submitted at t0)."""
+        with trace.span("engine.serve"):
+            return self._serve(requests)
+
+    def _serve(self, requests: Sequence[Request]) -> List[Completion]:
         b = self.batch_slots
         pending = collections.deque(requests)
         slots: List[Optional[_Slot]] = [None] * b
@@ -215,9 +230,11 @@ class ContinuousEngine:
                 if r.max_new_tokens < 1:
                     raise ValueError("max_new_tokens must be >= 1 (every "
                                      "admitted slot decodes)")
-                tp = time.perf_counter()
-                self._insert(self._slot_prefill(r.prompt), i)
-                prefill_s = time.perf_counter() - tp
+                with trace.span("engine.admit", uid=r.uid,
+                                device=self.device):
+                    tp = time.perf_counter()
+                    self._insert(self._slot_prefill(r.prompt), i)
+                    prefill_s = time.perf_counter() - tp
                 pos[i] = plen - 1
                 tokens[i, 0] = r.prompt[-1]
                 temps[i] = r.temperature
@@ -228,13 +245,17 @@ class ContinuousEngine:
                                  prefill_s=prefill_s)
 
             # one fixed-shape step for every slot
-            _, logits = self._step(
-                torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(pos).to(self.device))
-            nxt = sample_batched(logits[:, -1],
-                                 torch.from_numpy(temps).to(self.device),
-                                 self._generator)
-            nxt_h = np.where(active, nxt.cpu().numpy(), 0)
+            with trace.span("engine.step", device=self.device):
+                _, logits = self._step(
+                    torch.from_numpy(tokens).to(self.device),
+                    torch.from_numpy(pos).to(self.device))
+                nxt = sample_batched(logits[:, -1],
+                                     torch.from_numpy(temps).to(self.device),
+                                     self._generator)
+                nxt_h = np.where(active, nxt.cpu().numpy(), 0)
+            if trace.enabled():
+                trace.count("engine.slot_steps", b)
+                trace.count("engine.active_slot_steps", active.sum())
             pos = np.where(active, pos + 1, pos)
             steps += 1
 

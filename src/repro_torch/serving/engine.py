@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import Device, resolve_device
 from repro_torch.models.api import ModelAPI
 
@@ -124,16 +125,18 @@ class Engine:
             temps[i] = r.temperature
         temps_t = torch.from_numpy(temps).to(self.device)
 
-        t0 = time.perf_counter()
-        batch = {"tokens": torch.from_numpy(prompts).to(self.device),
-                 **self.extras}
-        states, logits = self.api.prefill(self.params, batch, self.cache_len)
-        _copy_into(self.cache, states)
-        self.last_prefill_logits = logits[:, -1]
-        cur = sample_batched(logits[:, -1], temps_t, self._generator)
-        out = np.zeros((b, max_new), np.int64)
-        out[:, 0] = cur.cpu().numpy()
-        t_prefill = time.perf_counter() - t0
+        with trace.span("engine.prefill", device=self.device):
+            t0 = time.perf_counter()
+            batch = {"tokens": torch.from_numpy(prompts).to(self.device),
+                     **self.extras}
+            states, logits = self.api.prefill(self.params, batch,
+                                              self.cache_len)
+            _copy_into(self.cache, states)
+            self.last_prefill_logits = logits[:, -1]
+            cur = sample_batched(logits[:, -1], temps_t, self._generator)
+            out = np.zeros((b, max_new), np.int64)
+            out[:, 0] = cur.cpu().numpy()
+            t_prefill = time.perf_counter() - t0
 
         t1 = time.perf_counter()
         for step in range(1, max_new):
@@ -156,11 +159,12 @@ class Engine:
         """Serve any number of requests in waves.  ``finished_s`` is the wall
         time from serve() start to the end of the request's wave."""
         done: List[Completion] = []
-        t0 = time.perf_counter()
-        for i in range(0, len(requests), self.batch_slots):
-            wave = self.run_wave(requests[i:i + self.batch_slots])
-            t_wave = time.perf_counter() - t0
-            for c in wave:
-                c.finished_s = t_wave
-            done.extend(wave)
+        with trace.span("engine.serve"):
+            t0 = time.perf_counter()
+            for i in range(0, len(requests), self.batch_slots):
+                wave = self.run_wave(requests[i:i + self.batch_slots])
+                t_wave = time.perf_counter() - t0
+                for c in wave:
+                    c.finished_s = t_wave
+                done.extend(wave)
         return done
