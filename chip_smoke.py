@@ -57,7 +57,13 @@ stdout; a failing phase raises and the script exits non-zero:
              shape against ref.ssd_final_state_ref, and at the two prefill
              shapes bf16 views of a conv output bit-equal to the same call
              on f32 copies and held to the plain versions on the same
-             views (ssd_scan).  SINT must be
+             views (ssd_scan); a Mamba block's pre-norm and the mixer's
+             gated norm at mamba2-370m's prefill (8 x 1024 rows, W 1024
+             and 2048) and Jamba's (4 x 1024 rows, W 8192 and 16384), the
+             gated norm's xs and z read as the model's views, through
+             ops.rmsnorm_codes against ref.norm_codes_ref: int8 codes
+             equal on >= 99.9% of entries and never a step apart
+             (norm_codes).  SINT must be
              torch.equal (grouped: the logit lanes; score lanes,
              reductions summed in another order, within 1e-5 relative);
              REAL within 1e-5 (and the softmax fleet); DINT within 1e-4;
@@ -118,10 +124,15 @@ stdout; a failing phase raises and the script exits non-zero:
              BF16_NOISE_FACTOR times the bf16 plain path's (relative L2);
              token agreement printed.  (j)/(l) also against the same engine
              with only qmatmul plain (backend={"qmatmul": "ref"}): tokens
-             and prefill logits equal.  (k)/(l) print how far the two plain
-             SSD versions (chunked, sequential) put the logits apart.
-             Launches checked: 48 ssd_scan per prefill, 96 qmatmul per
-             forward for SINT, nothing else.
+             and prefill logits equal.  (j)/(l) also against the eager
+             norm and quantize (backend={"norm_codes": "ref"}): prefill
+             logits no farther from them (relative L2) than
+             BF16_NOISE_FACTOR times the eager path's own distance when
+             the chunked plain SSD takes ssd_scan's place.  (k)/(l) print
+             how far the two plain SSD versions (chunked, sequential) put
+             the logits apart.  Launches checked: 48 ssd_scan per prefill,
+             and for SINT 96 qmatmul per forward and 96 norm_codes per
+             prefill, nothing else.
 8. profile — one prefill of (i) under torch.profiler: device busy share,
              device time by kernel, 48 ssd_scan kernels, and no state
              kernel (scan, cumsum, flip) outside ssd_scan.
@@ -236,16 +247,17 @@ stdout; a failing phase raises and the script exits non-zero:
              depth cut to one super-block of 8 layers (attention at
              position 3, 7 Mamba, 4 dense MLP, 4 MoE) and the experts from
              16 to 8 (all 16 would be 77.3 GB of one super-block's experts
-             alone); 30 qmatmul launches per forward and 7 ssd_scan per
-             prefill; tokens and prefill logits torch.equal to the same
+             alone); 30 qmatmul launches per forward, 7 ssd_scan and 14
+             norm_codes per prefill; tokens and prefill logits torch.equal
+             to the same
              engine with qmatmul plain (the ssd_scan kernel in both); one
              prefill and one decode step under torch.profiler.  (B) one of
              its Mamba mixers, f32 REAL, B 1 x T 256: output and both states
              within 1e-4 (of the largest) of the CPU's plain path.  (C)
              (A)'s model through ContinuousEngine, 4 slots, 12 requests
              (seeded prompts of 64-512 tokens, 8-24 new): tokens and step
-             count equal to the qmatmul-plain engine's, 7 ssd_scan launches
-             per admission.  (D) llava-next-34b bf16 SINT, all 60 layers
+             count equal to the qmatmul-plain engine's, 7 ssd_scan and 14
+             norm_codes launches per admission.  (D) llava-next-34b bf16 SINT, all 60 layers
              (d 7168, 56/8 heads of 128, d_ff 20480, vocab 64000), the wave
              Engine with extras={"image_emb": (2, 2880, 1152)} from a seed,
              512 text tokens, 16 new: 420 qmatmul launches per forward,
@@ -363,8 +375,9 @@ stdout; a failing phase raises and the script exits non-zero:
              failure), body difference 0.0.  (AD) serve_llm --arch
              qwen3_8b --quant SINT --engine continuous and --arch
              mamba2_370m --quant SINT (reduced, as the reference): qmatmul
-             (and ssd_scan) launched, greedy tokens equal to the same
-             params with backend={"qmatmul": "ref"}.  (AE) ``python -m
+             (and ssd_scan, with two norm_codes a ssd_scan) launched,
+             greedy tokens equal to the same params with
+             backend={"qmatmul": "ref"}.  (AE) ``python -m
              repro_torch.examples.quickstart`` exits 0 with its two checks.
 
 Then the wall seconds of each phase and in all, and each trainer's wall
@@ -778,6 +791,16 @@ def ssd_bound(x, dt, a, b, c, y, state, chunk):
     return bound(nbytes(x, dt, a, b, c, y, state), op_seconds)
 
 
+def norm_codes_bound(x, g, kw, out):
+    """norm_codes reads each row's W columns of x (and of xs and z where
+    gated, whatever their row strides), g and d_skip, and writes the
+    codes; a few operations a value, far below the bytes' time."""
+    rows = [x, *(kw[k] for k in ("xs", "z") if k in kw)]
+    moved = sum(t.numel() * t.element_size() for t in rows) \
+        + nbytes(g, kw.get("d_skip"), out)
+    return bound(moved, 0.0)
+
+
 def ssd_cuda_core_bound(x, dt, a, b, c):
     """The earlier CUDA-core kernel's bound, kept so that its rows compare
     with the tensor-core kernel's: chunk 128, no state update after the
@@ -818,22 +841,26 @@ def nvidia_smi():
 
 # The kernels whose launches the main-path runs count (module integers of
 # repro_torch.kernels: reset before a run, read after it).
-COUNTED = ("fused_mlp", "qmatmul", "grouped_mlp", "sparse_matmul", "ssd_scan")
+COUNTED = ("fused_mlp", "qmatmul", "grouped_mlp", "sparse_matmul", "ssd_scan",
+           "norm_codes")
 
 
 def reset_counts():
-    from repro_torch.kernels import fused_mlp, qmatmul, sparse_matmul, ssd_scan
+    from repro_torch.kernels import (fused_mlp, norm_codes, qmatmul,
+                                     sparse_matmul, ssd_scan)
     fused_mlp.launches = qmatmul.launches = 0
     fused_mlp.grouped_launches = 0
-    sparse_matmul.launches = ssd_scan.launches = 0
+    sparse_matmul.launches = ssd_scan.launches = norm_codes.launches = 0
 
 
 def read_counts():
-    from repro_torch.kernels import fused_mlp, qmatmul, sparse_matmul, ssd_scan
+    from repro_torch.kernels import (fused_mlp, norm_codes, qmatmul,
+                                     sparse_matmul, ssd_scan)
     return {"fused_mlp": fused_mlp.launches, "qmatmul": qmatmul.launches,
             "grouped_mlp": fused_mlp.grouped_launches,
             "sparse_matmul": sparse_matmul.launches,
-            "ssd_scan": ssd_scan.launches}
+            "ssd_scan": ssd_scan.launches,
+            "norm_codes": norm_codes.launches}
 
 
 def expect(**counts):
@@ -1670,7 +1697,7 @@ def families_phase(dev, smi):
     torch.cuda.reset_peak_memory_stats()
     done, counts = counted(lambda: engine.serve(jreqs))
     check_counts("A", counts, expect(qmatmul=j_forward * JAMBA_NEW,
-                                     ssd_scan=n_mamba))
+                                     ssd_scan=n_mamba, norm_codes=2 * n_mamba))
     peak = peak_gb()
     if np.stack([c.tokens for c in done]).shape != (JAMBA_BATCH, JAMBA_NEW):
         raise AssertionError("A: a request stopped short")
@@ -1697,13 +1724,15 @@ def families_phase(dev, smi):
     cache, lg = japi.prefill(jparams, batch, JAMBA_CACHE)
     profile("A_jamba_prefill",
             lambda: japi.prefill(jparams, batch, JAMBA_CACHE),
-            {"qmatmul_kernel": j_forward, "ssd_scan_kernel": n_mamba})
+            {"qmatmul_kernel": j_forward, "ssd_scan_kernel": n_mamba,
+             "norm_codes_kernel": 2 * n_mamba})
     cur = torch.argmax(lg[:, -1], dim=-1)[:, None]
     japi.decode(jparams, cache, {"tokens": cur}, JAMBA_PROMPT)
     profile("A_jamba_decode_step",
             lambda: japi.decode(jparams, cache, {"tokens": cur},
                                 JAMBA_PROMPT + 1),
-            {"qmatmul_kernel": j_forward, "ssd_scan_kernel": 0})
+            {"qmatmul_kernel": j_forward, "ssd_scan_kernel": 0,
+             "norm_codes_kernel": 0})
     del batch, cache, lg, cur
 
     # -- (C) (A)'s model through the ContinuousEngine ------------------------
@@ -1727,7 +1756,8 @@ def families_phase(dev, smi):
     st = eng.last_stats
     check_counts("C", counts, expect(
         qmatmul=j_forward * (st.admitted + st.steps),
-        ssd_scan=n_mamba * st.admitted))
+        ssd_scan=n_mamba * st.admitted,
+        norm_codes=2 * n_mamba * st.admitted))
     peak = peak_gb()
     plain = continuous(plain_q)
     same_tokens("C", by_uid(done), by_uid(plain.serve(creqs)))
@@ -3340,8 +3370,10 @@ def examples_phase(dev, smi):
             if tokens != plain:
                 raise AssertionError(f"AD {argv}: tokens differ from the "
                                      f"qmatmul-plain run")
+            # A Mamba layer's prefill: one ssd_scan and two norm_codes.
             if not counts["qmatmul"] or (api.cfg.family == "ssm"
-                                         and not counts["ssd_scan"]):
+                                         and not counts["ssd_scan"]) \
+                    or counts["norm_codes"] != 2 * counts["ssd_scan"]:
                 raise AssertionError(f"AD {argv}: launches {counts}")
             emit_row("AD_serve_llm", {
                 "argv": argv, "model": api.cfg.name,
@@ -4040,6 +4072,67 @@ def main():
         emit({"phase": "kernels", "kernel": "ssd_scan", **row})
         del args, got, state
 
+    # norm_codes at the main path's shapes, through ops.rmsnorm_codes as the
+    # mixers call it: a block's pre-norm (the bf16 residual, W = d_model)
+    # and the gated norm (y f32, xs and z views of the conv output and of
+    # in_proj's output, W = d_inner), at run (j)'s prefill (mamba2-370m,
+    # 8 x 1024 rows) and run (A)'s (Jamba, 4 x 1024), x_scale 1/127 as
+    # linear_init sets it.  Codes equal to ref.norm_codes_ref on >= 99.9%
+    # of entries and never a step apart (only the order of the row's sum
+    # of squares differs).
+    def norm_inputs(cfg, bsz, t, gated, seed):
+        card_gen.manual_seed(seed)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=card_gen, device=dev)
+        d_inner, h = cfg.d_inner, cfg.ssm_heads
+        conv_dim = d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        scale = torch.tensor(1.0 / 127.0, device=dev)
+        if not gated:
+            return ((3.0 * randn(bsz, t, cfg.d_model)).to(torch.bfloat16),
+                    1.0 + 0.1 * randn(cfg.d_model), scale, {})
+        xbc = randn(bsz, t, conv_dim).to(torch.bfloat16)
+        zx = randn(bsz, t, d_inner + conv_dim + h).to(torch.bfloat16)
+        return (randn(bsz, t, d_inner), 1.0 + 0.1 * randn(d_inner), scale,
+                {"xs": xbc[..., :d_inner], "z": zx[..., :d_inner],
+                 "d_skip": 1.0 + 0.5 * torch.rand((h,), generator=card_gen,
+                                                  device=dev)})
+
+    norm_rows_out, norm_err = [], 0
+    for model_name, ncfg, bsz, t in (
+            ("mamba2-370m", mcfg, MAMBA_BATCH, MAMBA_PROMPT),
+            ("jamba", jcfg, JAMBA_BATCH, JAMBA_PROMPT)):
+        for site, gated in (("prenorm", False), ("gated", True)):
+            x, g, scale, kw = norm_inputs(ncfg, bsz, t, gated, seed=t + 7)
+
+            def call():
+                return ops.rmsnorm_codes(x, g, scale, **kw)
+            got = call()
+            want = ref.norm_codes_ref(x, g, scale, **kw)
+            torch.cuda.synchronize()
+            diff = (got.int() - want.int()).abs()
+            row = {"model": model_name, "site": site, "rows": bsz * t,
+                   "width": x.shape[-1],
+                   "row_strides": [v.stride(1) for v in (x, *kw.values())
+                                   if v.ndim == 3],
+                   "max_code_diff": int(diff.max()),
+                   "equal_share": float((diff == 0).float().mean()),
+                   "clipped_share": float((want.abs() == 127).float()
+                                          .mean())}
+            if row["max_code_diff"] > 1 or row["equal_share"] < 0.999:
+                raise AssertionError(f"norm_codes {model_name} {site}: "
+                                     f"{row}")
+            norm_err = max(norm_err, row["max_code_diff"])
+            row["ms"] = kernel_ms(call, 20, "norm_codes_kernel")
+            row["call_ms"] = time_ms(call, 20)
+            row["plain_ms"] = time_ms(
+                lambda: ref.norm_codes_ref(x, g, scale, **kw), 5)
+            row["bound_ms"], row["bound_by"] = norm_codes_bound(
+                x, g, kw, got)
+            norm_rows_out.append(row)
+            emit({"phase": "kernels", "kernel": "norm_codes", **row})
+            del x, g, kw, got, want, diff
+
     phase_done("kernels")
     # -- 4. serve: the 1024-plant fleet -------------------------------------
     def drive(engine):
@@ -4322,8 +4415,10 @@ def main():
         reset_counts()
         done = engine.serve(mamba_requests)
         counts = read_counts()
-        want_counts = expect(ssd_scan=cfg.n_layers, qmatmul=(
-            2 * cfg.n_layers * MAMBA_NEW if cfg.quant == "SINT" else 0))
+        sint = cfg.quant == "SINT"
+        want_counts = expect(ssd_scan=cfg.n_layers,
+                             qmatmul=2 * cfg.n_layers * MAMBA_NEW * sint,
+                             norm_codes=2 * cfg.n_layers * sint)
         if counts != want_counts:
             raise AssertionError(f"{run}: launches {counts}, expected "
                                  f"{want_counts}")
@@ -4353,6 +4448,33 @@ def main():
                     f"{float((logits - mixed).abs().max())}, tokens equal "
                     f"{np.array_equal(tokens, mixed_tokens)})")
             extra["equal_to_plain_qmatmul_path"] = True
+            # Both sides above launch norm_codes.  Against the eager norm
+            # and quantize ({"norm_codes": "ref"}) the kernel's codes may sit
+            # a step off at a rounding boundary, and 48 random-weight SINT
+            # layers grow that as they grow any last-bit change: so the gap
+            # is held to BF16_NOISE_FACTOR times the gap that an
+            # independent last-bit change makes on the eager path, the
+            # chunked plain SSD in ssd_scan's place.
+            def prefill_logits(backend):
+                return get_model(cfg, backend=backend).prefill(
+                    params, prompt_batch, cache_len)[1][:, -1]
+            fused = prefill_logits("auto")
+            eager = prefill_logits({"norm_codes": "ref"})
+            chunked = prefill_logits({"norm_codes": "ref",
+                                      "ssd_scan": "chunked"})
+            extra.update(
+                norm_codes_vs_eager_rel_l2=rel_l2(fused, eager),
+                chunked_ssd_vs_eager_rel_l2=rel_l2(chunked, eager),
+                norm_codes_vs_eager_max_rel=float(
+                    (fused - eager).abs().max() / eager.abs().max()),
+                chunked_ssd_vs_eager_max_rel=float(
+                    (chunked - eager).abs().max() / eager.abs().max()))
+            if extra["norm_codes_vs_eager_rel_l2"] > BF16_NOISE_FACTOR \
+                    * extra["chunked_ssd_vs_eager_rel_l2"]:
+                raise AssertionError(f"{run}: the norm_codes path farther "
+                                     f"from the eager norm than the "
+                                     f"chunked SSD: {extra}")
+            del fused, eager, chunked
         if cfg.dtype == torch.float32:
             # Two plain versions (SSD summed chunk by chunk vs step by
             # step): the spread that the plain path itself has.
@@ -4738,6 +4860,8 @@ def main():
                   and r["sparsity"] == 0.5 and r["block"] == [128, 128])
     ssd_head = next(r for r in ssd_rows if r["shape"] == "prefill")
     ssd_jamba = next(r for r in ssd_rows if r["shape"] == "jamba_prefill")
+    norm_head = next(r for r in norm_rows_out if r["model"] == "mamba2-370m"
+                     and r["site"] == "gated")
     source = ("torch.profiler" if fused_head["ms"] is not None
               and all(r["ms"] is not None for r in q_main) else "call_ms")
     kernels = [
@@ -4838,6 +4962,27 @@ def main():
              "bound_ms", "bound_by", "bf16_views_ms", "bf16_views_bound_ms",
              "max_abs_err", "state_max_abs_err")},
          "timed": [r for r in ssd_rows if "ms" in r]},
+        {"name": "norm_codes", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/norm_codes.cu",
+         "replaces": None,
+         "launches": launches["norm_codes"],
+         "mesh_launches": mesh_launches["norm_codes"],
+         "examples_launches": ex_launches["norm_codes"],
+         "families_launches": fam_launches["norm_codes"],
+         "max_code_diff": norm_err,
+         "ms": ms(norm_head),
+         "ms_source": ("torch.profiler" if norm_head["ms"] is not None
+                       else "call_ms"),
+         "call_ms": norm_head["call_ms"], "plain_ms": norm_head["plain_ms"],
+         "bound_ms": norm_head["bound_ms"],
+         "bound_by": norm_head["bound_by"], "library_ms": None,
+         "shape": f"{MAMBA_ARCH} gated norm, {norm_head['rows']} rows x "
+                  f"W={norm_head['width']}",
+         "sites": {f"{r['model']} {r['site']}": {
+             k: r[k] for k in ("rows", "width", "ms", "call_ms", "plain_ms",
+                               "bound_ms", "max_code_diff", "equal_share")}
+             for r in norm_rows_out},
+         "timed": norm_rows_out},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

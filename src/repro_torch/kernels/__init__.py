@@ -8,6 +8,9 @@
   §6.2-pruned weight (``csrc/sparse_matmul.cu``).
 * ``ssd_scan`` — the Mamba-2 SSD chunked scan, the whole batch in ONE launch
   (``csrc/ssd_scan.cu``).
+* ``norm_codes`` — an RMSNorm row (after the Mamba-2 skip and gate, where
+  asked) written out as the int8 codes of the SINT projection it feeds
+  (``csrc/norm_codes.cu``).
 
 ``ops`` holds the public wrappers and the ``backend`` contract, ``ref`` the
 plain PyTorch versions, ``build`` the nvcc build and ctypes loading.

@@ -24,7 +24,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_mlp", "grouped_mlp", "qmatmul", "sparse_matmul", "ssd_scan")
+SOURCES = ("fused_mlp", "grouped_mlp", "norm_codes", "qmatmul",
+           "sparse_matmul", "ssd_scan")
 # sm_90a: Hopper with its architecture-specific features.  No fast-math:
 # the kernels' numerics depend on IEEE division and unfused mul/add.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

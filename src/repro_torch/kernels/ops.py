@@ -1,7 +1,8 @@
 """Public wrappers around the port's kernels: the ``repro.kernels.ops``
 counterpart (``qmatmul``, ``fused_mlp`` and the grouped
 ``grouped_fused_mlp`` with the grouped fleet's packing; ``sparse_matmul``
-behind :func:`sparse_dense`; ``ssd_scan`` behind :func:`ssd`).
+behind :func:`sparse_dense`; ``ssd_scan`` behind :func:`ssd`;
+``norm_codes`` behind :func:`rmsnorm_codes`).
 
 The ``backend`` contract:
 
@@ -29,9 +30,11 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch import trace
 from repro_torch.core.layers import ACTIVATIONS, Dense, Input, int_matmul
 from repro_torch.core.prune import BlockSparseWeight
-from repro_torch.kernels import fused_mlp, qmatmul, ref, sparse_matmul, ssd_scan
+from repro_torch.kernels import (fused_mlp, norm_codes, qmatmul, ref,
+                                 sparse_matmul, ssd_scan)
 from repro_torch.kernels.fused_mlp import (GROUPED_ACT_IDS,
                                            GROUPED_KIND_LOGITS,
                                            GROUPED_KIND_SCORE, FusedLayer,
@@ -41,7 +44,7 @@ from repro_torch.kernels.fused_mlp import (GROUPED_ACT_IDS,
 LayerStack = Sequence[Tuple[Dict[str, torch.Tensor], str]]
 BACKENDS = ("auto", "kernel", "ref")
 KERNELS = ("qmatmul", "fused_mlp", "grouped_fused_mlp", "sparse_matmul",
-           "ssd_scan")
+           "ssd_scan", "norm_codes")
 Backend = Union[str, Mapping[str, str]]
 
 
@@ -693,6 +696,49 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                for v in (x, b, c))
     return ssd_scan.ssd_scan(x, dt.contiguous(), a.contiguous(), b, c,
                              return_state=return_state)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm into a SINT projection's codes (mamba2)
+# ---------------------------------------------------------------------------
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., W) as (M, W) rows with packed columns: a view where one
+    row stride reaches every row (the conv output's channels), a copy
+    otherwise."""
+    rows = t.reshape(-1, t.shape[-1])
+    return rows if rows.stride(-1) == 1 else rows.contiguous()
+
+
+def rmsnorm_codes(x: torch.Tensor, g: torch.Tensor, x_scale: torch.Tensor,
+                  *, xs: Optional[torch.Tensor] = None,
+                  d_skip: Optional[torch.Tensor] = None,
+                  z: Optional[torch.Tensor] = None, eps: float = 1e-6,
+                  backend: Backend = "auto") -> torch.Tensor:
+    """The int8 codes (M, W) that a SINT projection with activation scale
+    ``x_scale`` takes from ``rmsnorm(u) * g`` over the rows of ``x`` (...,
+    W), M the product of the leading dimensions: u = x (a block's
+    pre-norm), or the Mamba-2 mixer's gated norm (``xs``, ``d_skip`` and
+    ``z`` together) as :func:`ref.norm_codes_ref` composes it.  The
+    ``norm_codes`` kernel reads ``xs`` and ``z`` where they lie when their
+    rows share one stride; each launch counts ``model.norm_codes`` in
+    :mod:`repro_torch.trace`.
+
+    A DTensor takes the plain version, its ops dispatched by DTensor: a
+    mesh shards the gated norm's d_inner over ``"model"`` (out_proj's
+    rows), so no rank holds a whole row to norm, and the plain ops make
+    the reduction's collective.
+    """
+    if isinstance(x, DTensor) or not _use_kernel(x, backend, "norm_codes"):
+        return ref.norm_codes_ref(x, g, x_scale, xs=xs, d_skip=d_skip, z=z,
+                                  eps=eps)
+    trace.count("model.norm_codes")
+    return norm_codes.norm_codes(
+        _rows(x), g.contiguous(), x_scale,
+        xs=None if xs is None else _rows(xs),
+        d_skip=None if d_skip is None else d_skip.contiguous(),
+        z=None if z is None else _rows(z), eps=eps)
 
 
 def rowwise(fn, batched: Sequence[torch.Tensor],

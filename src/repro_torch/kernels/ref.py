@@ -201,3 +201,29 @@ def ssd_update_ref(state: torch.Tensor, xt: torch.Tensor, dtt: torch.Tensor,
         * bt[..., None, :]
     yt = torch.einsum("...hpn,...hn->...hp", state, ct)
     return state, yt
+
+
+def norm_codes_ref(x: torch.Tensor, g: torch.Tensor, x_scale: torch.Tensor,
+                   *, xs: Optional[torch.Tensor] = None,
+                   d_skip: Optional[torch.Tensor] = None,
+                   z: Optional[torch.Tensor] = None,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """The int8 SINT codes (M, W) of an RMSNorm that feeds a projection, as
+    the eager ops compose them (``common.rmsnorm`` then ``common.linear``'s
+    quantize, or ``models.mamba2._gated_out``): u = x (..., W) in the
+    working type or, for the gated norm (``xs``, ``d_skip`` and ``z``
+    together), ``(x + d_skip * xs) * silu(z)`` (``x`` f32, ``d_skip`` (H,)
+    one value per head of W / H columns, the sum cast to xs's type); then
+    ``n = rmsnorm(u) * g`` cast back and ``clamp(round(n / x_scale), -127,
+    127)``."""
+    if xs is not None:
+        lead, h = x.shape[:-1], d_skip.shape[0]
+        x = (x.reshape(*lead, h, -1) + d_skip[:, None]
+             * xs.reshape(*lead, h, -1)).reshape(x.shape).to(xs.dtype)
+        x = x * torch.nn.functional.silu(z)
+    xf = x.to(torch.float32)
+    n = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    n = (n * g).to(x.dtype)
+    codes = torch.round(n.reshape(-1, n.shape[-1]).to(torch.float32)
+                        / x_scale)
+    return torch.clamp(codes, -127.0, 127.0).to(torch.int8)

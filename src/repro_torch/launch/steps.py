@@ -30,7 +30,7 @@ from repro_torch.optim import (adamw, apply_updates, global_norm,
 from repro_torch.optim.adamw import leaves, tree_map
 
 # The plain versions a gradient runs through (ops.Backend).
-GRAD_BACKEND = {"ssd_scan": "chunked", "qmatmul": "ref"}
+GRAD_BACKEND = {"ssd_scan": "chunked", "qmatmul": "ref", "norm_codes": "ref"}
 
 
 def make_optimizer(lr: float = 3e-4, warmup: int = 100, steps: int = 10_000):

@@ -115,28 +115,60 @@ def linear(p: Params, x: torch.Tensor, *, backend: kops.Backend = "auto"
 def _linear(p: Params, x: torch.Tensor, backend: kops.Backend
             ) -> torch.Tensor:
     if "qw" in p:
-        qw = p["qw"]
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        # Symmetric clip, matching quantize_tensor's weight range.
-        qmax = float(torch.iinfo(qw.dtype).max)
-        xq = torch.clamp(torch.round(x2 / p["x_scale"]), -qmax, qmax)
-        scale = p["x_scale"] * p["w_scale"]
-        if qw.dtype == TORCH_INT_TYPES["SINT"]:
-            # SINT: int8 x int8 -> int32 products (the qmatmul kernel).
-            y = kops.quantized_matmul(xq.to(qw.dtype), qw, scale, p.get("b"),
-                                      backend=backend)
-        else:
-            # INT/DINT: emulated in f32 on the integer grid (int16/int32
-            # products would overflow int32 accumulation), as the reference.
-            y = xq @ qw.to(torch.float32) * scale
-            if p.get("b") is not None:
-                y = y + p["b"]
-        return y.reshape(*lead, qw.shape[-1]).to(x.dtype)
+        return _product(p, _quantize(p, x), x.shape[:-1], x.dtype, backend)
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def _quantize(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The codes (M, d_in) that quantized linear ``p`` takes from x (...,
+    d_in): int8 under SINT, f32 on the integer grid under INT/DINT."""
+    qw = p["qw"]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    # Symmetric clip, matching quantize_tensor's weight range.
+    qmax = float(torch.iinfo(qw.dtype).max)
+    xq = torch.clamp(torch.round(x2 / p["x_scale"]), -qmax, qmax)
+    return xq.to(qw.dtype) if qw.dtype == TORCH_INT_TYPES["SINT"] else xq
+
+
+def _product(p: Params, xq: torch.Tensor, lead: Tuple[int, ...],
+             dtype: torch.dtype, backend: kops.Backend) -> torch.Tensor:
+    """Quantized linear ``p`` on its codes xq (M, d_in), cast back to
+    ``dtype`` as (*lead, d_out)."""
+    qw = p["qw"]
+    scale = p["x_scale"] * p["w_scale"]
+    if qw.dtype == TORCH_INT_TYPES["SINT"]:
+        # SINT: int8 x int8 -> int32 products (the qmatmul kernel).
+        y = kops.quantized_matmul(xq, qw, scale, p.get("b"), backend=backend)
+    else:
+        # INT/DINT: emulated in f32 on the integer grid (int16/int32
+        # products would overflow int32 accumulation), as the reference.
+        y = xq @ qw.to(torch.float32) * scale
+        if p.get("b") is not None:
+            y = y + p["b"]
+    return y.reshape(*lead, qw.shape[-1]).to(dtype)
+
+
+def is_sint(p: Params) -> bool:
+    """Whether linear ``p`` takes SINT's int8 codes."""
+    return "qw" in p and p["qw"].dtype == TORCH_INT_TYPES["SINT"]
+
+
+def norm_codes_linear(p: Params, x: torch.Tensor, g: torch.Tensor,
+                      lead: Tuple[int, ...], dtype: torch.dtype, *,
+                      backend: kops.Backend = "auto", **gated
+                      ) -> torch.Tensor:
+    """SINT linear ``p`` over ``rmsnorm({"g": g}, u)``, u made from the rows
+    of x as ``ops.rmsnorm_codes`` makes it (``gated``: the Mamba-2 gated
+    norm's ``xs``, ``d_skip`` and ``z``), cast back to (*lead, d_out) in
+    ``dtype``.  The norm writes p's codes in one ``norm_codes`` launch on
+    the card (the eager ops' composition elsewhere); the ``model.linear``
+    span holds the product and the cast back."""
+    codes = kops.rmsnorm_codes(x, g, p["x_scale"], backend=backend, **gated)
+    with trace.span("model.linear", device=codes):
+        return _product(p, codes, lead, dtype, backend)
 
 
 def rmsnorm_init(d: int, device: torch.device) -> Params:

@@ -117,8 +117,7 @@ def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                                         hn, positions, backend=backend)
             else:
                 p = _take(sb["mamba"], mamba_j)
-                h = h + mb.mamba_forward(p["mixer"], cfg,
-                                         cm.rmsnorm(p["ln"], h),
+                h = h + mb.mamba_forward(p["mixer"], cfg, h, ln=p["ln"],
                                          backend=backend)
                 mamba_j += 1
             h = cm.constrain(h + _ffn(sb, cfg, i, h, backend), "btd")
@@ -188,7 +187,7 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
             else:
                 p = _take(sb["mamba"], mamba_j)
                 out, st = mb._mamba_forward_state(
-                    p["mixer"], cfg, cm.rmsnorm(p["ln"], x), backend=backend)
+                    p["mixer"], cfg, x, ln=p["ln"], backend=backend)
                 cache["mamba"]["conv"][s, mamba_j].copy_(st["conv"])
                 cache["mamba"]["ssm"][s, mamba_j].copy_(st["ssm"])
                 x = x + out

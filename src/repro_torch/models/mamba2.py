@@ -6,8 +6,10 @@ out_proj.  The full-sequence passes (:func:`forward_logits`, :func:`prefill`)
 run the SSD through ``ops.ssd`` — the hand-written ``ssd_scan`` kernel on the
 card, one launch per layer for the whole batch, reading x, B and C in place
 from the conv output; :func:`prefill` takes each layer's final SSM state
-from that same launch.  Decode carries (conv, ssm)
-state per sequence and runs plain tensor ops (the reference's
+from that same launch.  Under SINT the block's pre-norm and the gated norm
+each write their projection's int8 codes through ``ops.rmsnorm_codes``: one
+``norm_codes`` launch on the card.  Decode carries (conv, ssm) state per
+sequence and runs plain tensor ops (the reference's
 ``ssd_update_ref``, no kernel).  The in/out projections are quantizable
 (§6.1) through ``common.linear``; the scan stays f32.
 
@@ -121,12 +123,29 @@ def _mixer_inputs(p: Params, cfg: ArchConfig, xbc: torch.Tensor,
     return xs, bmat, cmat, dt, a
 
 
+def _in_proj(p: Params, x: torch.Tensor, ln, backend: kops.Backend
+             ) -> torch.Tensor:
+    """in_proj over the mixer's input ``x``, or with ``ln`` (the block's
+    pre-norm) over ``rmsnorm(ln, x)``."""
+    if ln is None:
+        return cm.linear(p["in_proj"], x, backend=backend)
+    if cm.is_sint(p["in_proj"]):
+        return cm.norm_codes_linear(p["in_proj"], x, ln["g"], x.shape[:-1],
+                                    x.dtype, backend=backend)
+    return cm.linear(p["in_proj"], cm.rmsnorm(ln, x), backend=backend)
+
+
 def _gated_out(p: Params, cfg: ArchConfig, y: torch.Tensor,
                xs: torch.Tensor, z: torch.Tensor, backend: kops.Backend
                ) -> torch.Tensor:
     """D skip, gated RMSNorm and out_proj over the SSD's output (f32 ``y``;
     ``xs`` in the working type, promoted exactly to f32 by the skip)."""
     b, s = z.shape[:2]
+    if cm.is_sint(p["out_proj"]):
+        return cm.norm_codes_linear(
+            p["out_proj"], y.reshape(b, s, cfg.d_inner), p["norm"]["g"],
+            (b, s), cfg.dtype, backend=backend,
+            xs=xs.reshape(b, s, cfg.d_inner), d_skip=p["d_skip"], z=z)
     y = y + p["d_skip"][None, None, :, None] * xs
     y = y.reshape(b, s, cfg.d_inner).to(cfg.dtype)
     y = cm.rmsnorm(p["norm"], y * F.silu(z))
@@ -134,9 +153,11 @@ def _gated_out(p: Params, cfg: ArchConfig, y: torch.Tensor,
 
 
 def mamba_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
-                  backend: kops.Backend = "auto") -> torch.Tensor:
-    """Full-sequence mixer: x (B, S, d_model) -> (B, S, d_model)."""
-    zxbcdt = cm.linear(p["in_proj"], x, backend=backend)
+                  backend: kops.Backend = "auto", ln=None) -> torch.Tensor:
+    """Full-sequence mixer: x (B, S, d_model) -> (B, S, d_model).  With
+    ``ln`` (the block's pre-norm params) x is the residual stream, normed
+    here."""
+    zxbcdt = _in_proj(p, x, ln, backend)
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
     xs, bmat, cmat, dt, a = _mixer_inputs(p, cfg, _causal_conv(p, xbc),
                                           dt_raw)
@@ -145,11 +166,11 @@ def mamba_forward(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
 
 
 def _mamba_forward_state(p: Params, cfg: ArchConfig, x: torch.Tensor, *,
-                         backend: kops.Backend = "auto"
+                         backend: kops.Backend = "auto", ln=None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`mamba_forward` that also returns the final (conv, ssm) state."""
     s = x.shape[1]
-    zxbcdt = cm.linear(p["in_proj"], x, backend=backend)
+    zxbcdt = _in_proj(p, x, ln, backend)
     z, xbc_pre, dt_raw = _split_proj(cfg, zxbcdt)
     # The conv state is the last K - 1 inputs, front-padded with zeros for
     # prompts shorter than the kernel (the stepwise decode's initial state).
@@ -258,7 +279,7 @@ def forward_logits(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     x = cm.embed(params["embed"], tokens).to(cfg.dtype)
 
     def body(blk, h):
-        h = h + mamba_forward(blk["mixer"], cfg, cm.rmsnorm(blk["ln"], h),
+        h = h + mamba_forward(blk["mixer"], cfg, h, ln=blk["ln"],
                               backend=backend)
         return cm.constrain(h, "btd")
 
@@ -301,8 +322,8 @@ def prefill(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     convs, ssms = [], []
     for layer in range(cfg.n_layers):
         blk = _layer(params["blocks"], layer)
-        out, state = _mamba_forward_state(
-            blk["mixer"], cfg, cm.rmsnorm(blk["ln"], h), backend=backend)
+        out, state = _mamba_forward_state(blk["mixer"], cfg, h, ln=blk["ln"],
+                                          backend=backend)
         h = h + out
         convs.append(state["conv"])
         ssms.append(state["ssm"])

@@ -44,7 +44,10 @@ Sites (each read by ``perfbench/lib/program_trace.py``, PERF.md §3): ``engine.s
 ``serving/engine.py`` and ``serving/continuous.py``; ``model.forward`` in
 ``models/api.py``; ``model.moe`` in ``models/moe.py``; ``model.linear``
 in ``models/common.py``; the counters ``engine.slot_steps`` and
-``engine.active_slot_steps`` in ``serving/continuous.py``.
+``engine.active_slot_steps`` in ``serving/continuous.py``.  The counter
+``model.norm_codes`` in ``kernels/ops.py`` counts the ``norm_codes``
+launches (a Mamba-2 block's pre-norm or gated norm writing its projection's
+codes); no reader takes it yet.
 """
 
 from __future__ import annotations

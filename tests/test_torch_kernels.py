@@ -39,8 +39,8 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core import layers as TL
 from repro_torch.core import prune, quantize, sequential
-from repro_torch.kernels import (fused_mlp, ops, qmatmul, ref, sparse_matmul,
-                                 ssd_scan)
+from repro_torch.kernels import (fused_mlp, norm_codes, ops, qmatmul, ref,
+                                 sparse_matmul, ssd_scan)
 from repro_torch.models import mamba2
 from repro_torch.models.api import get_model
 from repro_torch.models.vlm import VISION_D
@@ -683,6 +683,201 @@ def test_ssd_scan_matches_sequential():
     args = ssd_inputs(2, 300, 8, 64, 128, 1, seed=1)
     torch.testing.assert_close(ops.ssd(*args), ops.ssd(*args, backend="ref"),
                                rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# norm_codes: an RMSNorm row written out as a SINT projection's codes
+
+NORM_WIDTHS = (64, 1024, 2048, 16384)
+# site -> gated: the block's pre-norm, the mixer's gated norm (D skip and
+# SiLU gate first)
+NORM_SITES = {"norm": False, "gated_out": True}
+# layout -> (extra columns, first column) of the tensors the rows are cut
+# from: packed rows, strided views the kernel reads with 16-byte loads (the
+# conv output's and in_proj output's channels), and views it reads element
+# by element (an odd stride and a misaligned start)
+NORM_LAYOUTS = {"packed": (0, 0), "views": (256, 128), "unaligned": (3, 1)}
+
+
+def norm_rows(m, w, dtype, layout, gen):
+    """(m, w) normal rows in ``dtype``, cut from a wider tensor as
+    ``layout`` says."""
+    extra, first = NORM_LAYOUTS[layout]
+    base = torch.randn((m, w + extra), generator=gen, device="cuda")
+    return base.to(dtype)[:, first:first + w]
+
+
+def norm_operands(m, w, site, layout="packed", dtype=torch.bfloat16,
+                  x_scale=1.0 / 127.0, seed=0):
+    """(x, g, x_scale, kwargs) of a norm_codes call: gated, y f32 (the
+    SSD's output) with 64-column heads (fewer columns: one head)."""
+    gated = NORM_SITES[site]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = norm_rows(m, w, torch.float32 if gated else dtype, layout, gen)
+    g = 1.0 + 0.1 * torch.randn((w,), generator=gen, device="cuda")
+    kw = {}
+    if gated:
+        kw["xs"] = norm_rows(m, w, dtype, layout, gen)
+        kw["d_skip"] = 1.0 + 0.5 * torch.rand((max(w // 64, 1),),
+                                              generator=gen, device="cuda")
+        kw["z"] = norm_rows(m, w, dtype, layout, gen)
+    scale = torch.tensor(x_scale, dtype=torch.float32, device="cuda")
+    return x, g, scale, kw
+
+
+def check_codes(got, want):
+    """Codes equal on >= 99.9% of entries and never a step apart: only the
+    order of the row's sum of squares differs, which can move rsqrt's last
+    bit and with it a code sitting on a rounding boundary."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int8
+    assert got.shape == want.shape
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("layout", tuple(NORM_LAYOUTS))
+@pytest.mark.parametrize("site", tuple(NORM_SITES))
+@pytest.mark.parametrize("w", NORM_WIDTHS)
+def test_norm_codes_matches_plain(w, site, layout):
+    """bf16 rows, 333 of them (no block count divides it), at the model's
+    x_scale 1/127, where a third of the codes clip at +-127."""
+    x, g, scale, kw = norm_operands(333, w, site, layout)
+    before = norm_codes.launches
+    got = norm_codes.norm_codes(x, g, scale, **kw)
+    assert norm_codes.launches == before + 1
+    want = ref.norm_codes_ref(x, g, scale, **kw)
+    check_codes(got, want)
+    assert int((want.int().abs() == 127).sum()) > 0
+
+
+@pytest.mark.parametrize("site", tuple(NORM_SITES))
+@pytest.mark.parametrize("w", NORM_WIDTHS)
+def test_norm_codes_rounds_half_to_even_at_the_clip(w, site):
+    """x_scale 2**-6: the normed bf16 values between 1 and 2 sit on a grid
+    of 2**-7, so half of their codes (64..127) are exact .5 ties that
+    rint must round to even, and every value past 2 clips."""
+    x, g, scale, kw = norm_operands(1000, w, site, x_scale=2.0 ** -6, seed=1)
+    got = norm_codes.norm_codes(x, g, scale, **kw)
+    want = ref.norm_codes_ref(x, g, scale, **kw)
+    check_codes(got, want)
+    # The plain version's normed values, before the quantize: the ties.
+    u = x
+    if kw:
+        h = kw["d_skip"].shape[0]
+        u = (x.reshape(len(x), h, -1) + kw["d_skip"][:, None]
+             * kw["xs"].reshape(len(x), h, -1)).reshape(x.shape) \
+            .to(torch.bfloat16)
+        u = u * torch.nn.functional.silu(kw["z"])
+    uf = u.float()
+    n = (uf * torch.rsqrt((uf * uf).mean(-1, keepdim=True) + 1e-6) * g) \
+        .to(torch.bfloat16).float() / scale
+    ties = (n - n.floor() == 0.5) & (n.abs() < 127)
+    assert int(ties.sum()) > 0
+    assert torch.equal(want[ties].float() % 2, torch.zeros_like(n[ties]))
+    assert int((want.int().abs() == 127).sum()) > 0
+
+
+@pytest.mark.parametrize("site", tuple(NORM_SITES))
+@pytest.mark.parametrize("w", NORM_WIDTHS)
+def test_norm_codes_f32_rows(w, site):
+    """The f32 working type (the reduced f32 configs): no bf16 rounding
+    anywhere, 37 rows."""
+    x, g, scale, kw = norm_operands(37, w, site, dtype=torch.float32,
+                                    seed=2)
+    check_codes(norm_codes.norm_codes(x, g, scale, **kw),
+                ref.norm_codes_ref(x, g, scale, **kw))
+
+
+@pytest.mark.parametrize("m", (0, 1, 2))
+def test_norm_codes_few_rows(m):
+    x, g, scale, kw = norm_operands(m, 2048, "gated_out", "views")
+    got = norm_codes.norm_codes(x, g, scale, **kw)
+    assert got.shape == (m, 2048)
+    if m:
+        check_codes(got, ref.norm_codes_ref(x, g, scale, **kw))
+
+
+def test_rmsnorm_codes_reads_the_mixers_views():
+    """``ops.rmsnorm_codes`` on the mixer's own layout: y (B, S, W) f32,
+    xs and z (B, S, W) views of the conv output and of in_proj's output
+    (row strides 2,304 and 4,384 at mamba2-370m's widths), one launch, the
+    kernel's codes on the flattened rows, and the plain version under
+    ``backend="ref"``."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, w = 4, 500, 2048
+    y = torch.randn((b, s, w), generator=gen, device="cuda")
+    conv = torch.randn((b, s, 2304), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    zxbcdt = torch.randn((b, s, 4384), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    xs, z = conv[..., :w], zxbcdt[..., :w]
+    g = torch.ones((w,), device="cuda")
+    d_skip = torch.ones((32,), device="cuda")
+    scale = torch.full((48,), 1.0 / 127.0, device="cuda")[5]
+    kw = dict(xs=xs, d_skip=d_skip, z=z)
+    before = norm_codes.launches
+    got = ops.rmsnorm_codes(y, g, scale, **kw)
+    assert norm_codes.launches == before + 1
+    assert torch.equal(got, norm_codes.norm_codes(
+        y.reshape(-1, w), g, scale, xs=xs.reshape(-1, w), d_skip=d_skip,
+        z=z.reshape(-1, w)))
+    want = ops.rmsnorm_codes(y, g, scale, backend="ref", **kw)
+    assert norm_codes.launches == before + 2
+    check_codes(got, want)
+
+
+def test_norm_codes_rejects_what_it_cannot_read():
+    x, g, scale, kw = norm_operands(8, 64, "gated_out")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        norm_codes.norm_codes(x.cpu(), g, scale, **kw)
+    with pytest.raises(ValueError, match="xs, d_skip and z together"):
+        norm_codes.norm_codes(x, g, scale, xs=kw["xs"], d_skip=kw["d_skip"])
+    by_column = kw["xs"].t().contiguous().t()    # (8, 64), column stride 8
+    with pytest.raises(ValueError, match="columns packed"):
+        norm_codes.norm_codes(x, g, scale, **{**kw, "xs": by_column})
+    with pytest.raises(ValueError, match="one f32 value"):
+        norm_codes.norm_codes(x, g, scale.cpu(), **kw)
+
+
+# The norm_codes path's distance from the eager norm and quantize at four
+# layers (largest difference over the largest value): a code a step off at
+# a rounding boundary grows through the layers as any last-bit change does.
+# On an H100, B 4 x T 1000, seeds 0-5: logits 0.0048-0.0103, SSM states
+# 0.0022-0.0107, conv states 0.0049-0.0073; the chunked plain SSD in
+# ssd_scan's place moves the eager path by 0.0072-0.0133, 0.0074-0.0126 and
+# 0.0057-0.0099.  A fault of the kernel (a lost skip or gate, a wrong head)
+# moves them by O(1).
+NORM_CODES_DEPTH_TOL = 2e-2
+
+
+def test_sint_mamba2_prefill_fused_matches_eager():
+    """Four layers of mamba2-370m at full width, bf16 SINT, a prefill of
+    B 4 x T 1000: two norm_codes launches a layer, and the last position's
+    logits and the final SSM and conv states within NORM_CODES_DEPTH_TOL of
+    their largest value of the eager norm and quantize's
+    (``{"norm_codes": "ref"}``)."""
+    cfg = get_config("mamba2_370m").with_(n_layers=4, quant="SINT")
+    api = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = api.init(gen)
+    tokens = torch.randint(0, cfg.vocab, (4, 1000), generator=gen,
+                           device="cuda")
+    before = norm_codes.launches
+    with torch.no_grad():
+        cache, logits = api.prefill(params, {"tokens": tokens}, 1004)
+        assert norm_codes.launches - before == 2 * cfg.n_layers
+        eager = get_model(cfg, backend={"norm_codes": "ref"})
+        want_cache, want = eager.prefill(params, {"tokens": tokens}, 1004)
+    assert norm_codes.launches - before == 2 * cfg.n_layers
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    for got_t, want_t in ((logits, want), (cache["ssm"], want_cache["ssm"]),
+                          (cache["conv"], want_cache["conv"])):
+        err = float((got_t.float() - want_t.float()).abs().max())
+        assert err <= NORM_CODES_DEPTH_TOL * float(want_t.float().abs()
+                                                   .max()), err
 
 
 @pytest.mark.parametrize("quant", (None, "SINT"))

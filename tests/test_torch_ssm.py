@@ -14,6 +14,7 @@ with their reasons:
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -31,10 +32,14 @@ from repro.models.api import get_model as jget_model
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import _truncate_eos as j_truncate_eos
+from repro_torch import trace
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.kernels import ops, ref, ssd_scan
-from repro_torch.models import mamba2
+from repro_torch.core.layers import TORCH_INT_TYPES
+from repro_torch.launch.steps import GRAD_BACKEND, loss_and_grads
+from repro_torch.models import common as cm
+from repro_torch.models import hybrid, mamba2
 from repro_torch.models.api import get_model
 from repro_torch.serving import Engine, Request, sample_batched
 from repro_torch.serving.engine import _truncate_eos
@@ -395,3 +400,323 @@ def test_sample_batched_and_eos():
     for eos in (None, 7, 3):
         np.testing.assert_array_equal(_truncate_eos(toks, eos),
                                       j_truncate_eos(toks, eos))
+
+
+# ---------------------------------------------------------------------------
+# The norm that writes a SINT projection's codes (the norm_codes kernel on
+# the card): its dispatch rule, its plain version against the eager ops, and
+# the split linear
+
+
+def card_stand_in(requires_grad=False):
+    """A stand-in for a CUDA tensor (this machine has no card)."""
+    return types.SimpleNamespace(device=torch.device("cuda"),
+                                 requires_grad=requires_grad)
+
+
+def sint_linear(d_in, d_out, quant="SINT", seed=0):
+    return cm.linear_init(torch.Generator().manual_seed(seed), d_in, d_out,
+                          bias=False, quant=quant)
+
+
+def linear_before_split(p, x, backend="auto"):
+    """``common._linear`` as it was before its quantize and product became
+    two functions."""
+    if "qw" in p:
+        qw = p["qw"]
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        qmax = float(torch.iinfo(qw.dtype).max)
+        xq = torch.clamp(torch.round(x2 / p["x_scale"]), -qmax, qmax)
+        scale = p["x_scale"] * p["w_scale"]
+        if qw.dtype == TORCH_INT_TYPES["SINT"]:
+            y = ops.quantized_matmul(xq.to(qw.dtype), qw, scale, p.get("b"),
+                                     backend=backend)
+        else:
+            y = xq @ qw.to(torch.float32) * scale
+            if p.get("b") is not None:
+                y = y + p["b"]
+        return y.reshape(*lead, qw.shape[-1]).to(x.dtype)
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def mixer_operands(dtype, seed=0):
+    """A reduced SINT mixer's params and the inputs of its two norm sites:
+    the residual h (B, S, d_model), and the SSD's y (B, S, H, P) f32 with
+    xs (a view of a conv output) and z (a view of in_proj's output)."""
+    cfg = get_config("mamba2_370m").reduced().with_(dtype=dtype,
+                                                    quant="SINT")
+    params = get_model(cfg).init(torch.Generator().manual_seed(seed),
+                                 device="cpu")
+    blk = mamba2._layer(params["blocks"], 1)
+    gen = torch.Generator().manual_seed(seed + 1)
+    b, s, h, hp = 2, 23, cfg.ssm_heads, cfg.ssm_headdim
+    # The norm weights away from 1, so that g takes part.
+    for g in (blk["ln"]["g"], blk["mixer"]["norm"]["g"]):
+        g.copy_(1.0 + 0.2 * torch.randn(g.shape, generator=gen))
+    resid = (3.0 * torch.randn((b, s, cfg.d_model), generator=gen)).to(dtype)
+    y = torch.randn((b, s, h, hp), generator=gen)
+    conv = torch.randn((b, s, cfg.d_inner + 64), generator=gen).to(dtype)
+    zx = torch.randn((b, s, cfg.d_inner + 32), generator=gen).to(dtype)
+    xs = conv[..., :cfg.d_inner].reshape(b, s, h, hp)
+    return cfg, blk, resid, y, xs, zx[..., :cfg.d_inner]
+
+
+def spy_rmsnorm_codes(monkeypatch):
+    """Stubs for both ends of ``ops.rmsnorm_codes`` (the rows of a
+    card stand-in cannot be cut): it returns "kernel" or "plain", and the
+    list it returns records each."""
+    taken = []
+
+    def end(name):
+        def fn(*args, **kwargs):
+            taken.append(name)
+            return name
+        return fn
+    monkeypatch.setattr(ops.norm_codes, "norm_codes", end("kernel"))
+    monkeypatch.setattr(ref, "norm_codes_ref", end("plain"))
+    monkeypatch.setattr(ops, "_rows", lambda t: t)
+    return taken
+
+
+def codes_on(x, backend):
+    return ops.rmsnorm_codes(x, torch.ones(4), torch.tensor(1.0),
+                             backend=backend)
+
+
+def _case_dispatch_cpu(monkeypatch):
+    """CPU tensors take the plain version under ``"auto"`` (and a mapping
+    that leaves norm_codes to it); ``"kernel"`` raises, as every kernel's
+    does; a SINT prefill on the CPU never launches the kernel."""
+    x = torch.zeros((3, 4))
+    for backend in ("auto", {"qmatmul": "ref"}):
+        assert torch.equal(codes_on(x, backend),
+                           torch.zeros((3, 4), dtype=torch.int8))
+    with pytest.raises(ValueError, match="no CPU mode"):
+        codes_on(x, "kernel")
+    taken = spy_rmsnorm_codes(monkeypatch)
+    assert codes_on(x, "auto") == "plain" and taken == ["plain"]
+
+
+def _case_dispatch_grad(monkeypatch):
+    """A card tensor that autograd records raises (no kernel has a
+    backward), as ``ops._use_kernel`` has every kernel do; without grad
+    mode, or with nothing that requires grad, the kernel; the training
+    step's ``GRAD_BACKEND`` names the plain version."""
+    taken = spy_rmsnorm_codes(monkeypatch)
+    with pytest.raises(RuntimeError, match="norm_codes kernel has no "
+                       "backward"):
+        codes_on(card_stand_in(requires_grad=True), "auto")
+    with torch.no_grad():
+        assert codes_on(card_stand_in(requires_grad=True), "auto") == "kernel"
+    assert codes_on(card_stand_in(), "auto") == "kernel"
+    assert GRAD_BACKEND["norm_codes"] == "ref"
+    assert codes_on(card_stand_in(requires_grad=True),
+                    GRAD_BACKEND) == "plain"
+    assert taken == ["kernel", "kernel", "plain"]
+
+
+def _case_grad_backend_sint_loss(monkeypatch):
+    """A SINT mamba2's training gradient with every tensor taken for a card
+    tensor: ``loss_and_grads`` (``GRAD_BACKEND``) asks norm_codes and
+    qmatmul only for their plain versions and equals the plain gradient bit
+    for bit, while the API's own loss under autograd raises at the first
+    norm's kernel."""
+    cfg = get_config("mamba2_370m").reduced().with_(dtype=torch.float32,
+                                                    quant="SINT")
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+             for k in ("tokens", "labels")}
+    want_loss, want = loss_and_grads(api, params, batch)
+    real, asked = ops._use_kernel, []
+
+    def card(t, backend, kernel):
+        asked.append((kernel, ops._backend_of(backend, kernel)))
+        return real(card_stand_in(t.requires_grad), backend, kernel)
+    monkeypatch.setattr(ops, "_use_kernel", card)
+    loss, grads = loss_and_grads(api, params, batch)
+    assert set(asked) == {("norm_codes", "ref"), ("qmatmul", "ref")}
+    assert float(loss) == float(want_loss)
+    assert want.keys() == grads.keys()
+    for g, w in zip(tensor_leaves(grads), tensor_leaves(want)):
+        assert torch.equal(g, w)
+    emb = params["embed"]["emb"].detach().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="norm_codes kernel has no "
+                       "backward"):
+        api.loss({**params, "embed": {"emb": emb}}, batch)
+
+
+def tensor_leaves(tree):
+    """The tensors of a nested dict, in key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from tensor_leaves(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
+
+
+def _case_dispatch_not_sint(monkeypatch):
+    """INT, DINT and REAL projections norm and quantize with the eager ops:
+    their prefill never reaches ``ops.rmsnorm_codes``."""
+    def unreachable(*args, **kwargs):
+        raise AssertionError("a non-SINT model reached ops.rmsnorm_codes")
+    monkeypatch.setattr(ops, "rmsnorm_codes", unreachable)
+    for quant in ("INT", "DINT", None):
+        assert not cm.is_sint(sint_linear(32, 16, quant))
+        cfg = get_config("mamba2_370m").reduced().with_(quant=quant)
+        api = get_model(cfg)
+        params = api.init(torch.Generator().manual_seed(0), device="cpu")
+        _, logits = api.prefill(params, {"tokens": torch.zeros(
+            (1, 6), dtype=torch.long)}, 8)
+        assert torch.isfinite(logits).all()
+    assert cm.is_sint(sint_linear(32, 16))
+
+
+def _case_dispatch_ref(monkeypatch):
+    """``backend="ref"``, or a mapping that gives norm_codes its plain
+    version, takes it on the card; ``"auto"``, ``"kernel"`` and a mapping
+    that leaves norm_codes out launch the kernel."""
+    taken = spy_rmsnorm_codes(monkeypatch)
+    for backend in ("ref", {"norm_codes": "ref"}):
+        assert codes_on(card_stand_in(), backend) == "plain"
+    for backend in ("auto", "kernel", {"qmatmul": "ref"},
+                    {"norm_codes": "kernel"}):
+        assert codes_on(card_stand_in(), backend) == "kernel"
+    assert taken == ["plain"] * 2 + ["kernel"] * 4
+
+
+def _case_sint_path(monkeypatch, arch, dtype):
+    """A SINT prefill and full forward on the CPU, through
+    ``ops.rmsnorm_codes`` (two calls a Mamba layer; its plain version here)
+    equal the eager norm-then-linear ops (``common.is_sint`` forced false)
+    bit for bit: logits, every cache leaf; no ``model.norm_codes`` count
+    (no kernel launched)."""
+    cfg = get_config(arch).reduced().with_(dtype=dtype, quant="SINT")
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 11)))
+    model = hybrid if cfg.family == "hybrid" else mamba2
+    with monkeypatch.context() as m:
+        m.setattr(cm, "is_sint", lambda p: False)
+        want_cache, want = api.prefill(params, {"tokens": tokens}, 16)
+        want_full = model.forward_logits(params, cfg, tokens)
+    calls = []
+    real = ops.rmsnorm_codes
+    monkeypatch.setattr(ops, "rmsnorm_codes",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    trace.enable()
+    try:
+        cache, got = api.prefill(params, {"tokens": tokens}, 16)
+        counters = trace.drain()["counters"]
+    finally:
+        trace.disable()
+    n_mamba = cfg.n_layers - cfg.n_layers // max(cfg.attn_period, 1) \
+        if cfg.family == "hybrid" else cfg.n_layers
+    assert len(calls) == 2 * n_mamba and counters == {}
+    assert torch.equal(got, want)
+
+    def flat(tree, path=()):
+        for k, v in sorted(tree.items()):
+            yield from (flat(v, path + (k,)) if isinstance(v, dict)
+                        else [(path + (k,), v)])
+    assert [k for k, _ in flat(cache)] == [k for k, _ in flat(want_cache)]
+    for (k, v), (_, w) in zip(flat(cache), flat(want_cache)):
+        assert torch.equal(v, w), k
+    assert torch.equal(model.forward_logits(params, cfg, tokens), want_full)
+
+
+def _case_ref_gated_out(dtype):
+    """``ref.norm_codes_ref`` with the gated norm's skip and gate: the codes
+    that the eager ops quantize, bit for bit, and ``_gated_out`` equal to
+    the eager skip, gated RMSNorm and out_proj."""
+    cfg, blk, _, y, xs, z = mixer_operands(dtype)
+    p = blk["mixer"]
+    b, s = z.shape[:2]
+    codes = ref.norm_codes_ref(
+        y.reshape(b, s, -1), p["norm"]["g"], p["out_proj"]["x_scale"],
+        xs=xs.reshape(b, s, -1), d_skip=p["d_skip"], z=z)
+    u = (y + p["d_skip"][None, None, :, None] * xs).reshape(b, s, -1) \
+        .to(cfg.dtype)
+    normed = cm.rmsnorm(p["norm"], u * torch.nn.functional.silu(z))
+    assert codes.dtype == torch.int8
+    assert torch.equal(codes, cm._quantize(p["out_proj"], normed))
+    assert torch.equal(mamba2._gated_out(p, cfg, y, xs, z, "auto"),
+                       cm.linear(p["out_proj"], normed))
+
+
+def _case_ref_prenorm(dtype):
+    """``ref.norm_codes_ref`` alone: ``rmsnorm`` then in_proj's quantize,
+    bit for bit, and the mixer's in_proj over the residual equal to the
+    eager ``linear(rmsnorm(...))``."""
+    cfg, blk, resid, *_ = mixer_operands(dtype)
+    p = blk["mixer"]["in_proj"]
+    normed = cm.rmsnorm(blk["ln"], resid)
+    codes = ref.norm_codes_ref(resid, blk["ln"]["g"], p["x_scale"])
+    assert torch.equal(codes, cm._quantize(p, normed))
+    assert int((codes.abs() == 127).sum()) > 0
+    assert torch.equal(mamba2._in_proj(blk["mixer"], resid, blk["ln"],
+                                       "auto"),
+                       cm.linear(p, normed))
+
+
+def _case_split_linear(quant, dtype):
+    """``common.linear`` after the split: bit-identical to the function
+    before it, with and without a bias, and ``_product`` on ``_quantize``'s
+    codes the same again."""
+    gen = torch.Generator().manual_seed(4)
+    x = (2.0 * torch.randn((3, 5, 48), generator=gen)).to(dtype)
+    for bias in (False, True):
+        p = cm.linear_init(gen, 48, 40, bias=bias, quant=quant, dtype=dtype)
+        if bias:
+            p["b"].copy_(torch.randn(40, generator=gen))
+        want = linear_before_split(p, x)
+        assert torch.equal(cm.linear(p, x), want)
+        if quant is not None:
+            codes = cm._quantize(p, x)
+            assert codes.dtype == (torch.int8 if quant == "SINT"
+                                   else torch.float32)
+            assert torch.equal(cm._product(p, codes, (3, 5), dtype, "auto"),
+                               want)
+
+
+NORM_CODES_CASES = {
+    "dispatch-cpu": _case_dispatch_cpu,
+    "dispatch-grad": _case_dispatch_grad,
+    "dispatch-not-sint": _case_dispatch_not_sint,
+    "dispatch-ref": _case_dispatch_ref,
+    "grad-backend-sint-loss": _case_grad_backend_sint_loss,
+    **{f"sint-path-{arch}-{dt}": (
+        lambda mp, arch=arch, dt=dt: _case_sint_path(
+            mp, arch, getattr(torch, dt)))
+       for arch in ("mamba2_370m", "jamba_1_5_large_398b")
+       for dt in ("float32", "bfloat16")},
+    **{f"ref-{site}-{dt}": (
+        lambda mp, fn=fn, dt=dt: fn(getattr(torch, dt)))
+       for site, fn in (("gated-out", _case_ref_gated_out),
+                        ("prenorm", _case_ref_prenorm))
+       for dt in ("float32", "bfloat16")},
+    **{f"split-linear-{quant}-{dt}": (
+        lambda mp, quant=quant, dt=dt: _case_split_linear(
+            quant, getattr(torch, dt)))
+       for quant in (None, "SINT", "INT", "DINT")
+       for dt in ("float32", "bfloat16")},
+}
+
+
+@pytest.mark.parametrize("case", tuple(NORM_CODES_CASES))
+def test_norm_codes_on_the_cpu(case, monkeypatch):
+    """The norm_codes dispatch (``ops.rmsnorm_codes`` under the backend
+    contract: CPU and ``backend="ref"`` take the plain version, a gradient
+    raises unless ``GRAD_BACKEND`` names it, INT/DINT/REAL never come
+    there), the plain version ``ref.norm_codes_ref`` against the eager ops
+    bit for bit, the SINT models through it equal to the eager ops, and the
+    split ``common._linear`` bit for bit against the function before the
+    split."""
+    NORM_CODES_CASES[case](monkeypatch)

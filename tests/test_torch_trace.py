@@ -8,9 +8,11 @@ spans nest as the engines call the model (``engine.serve`` > ``engine.admit``
 ``model.linear``), one per admission, step, wave and model call, and the
 counters add up to the slots stepped and the tokens made.  Served tokens,
 ``ServeStats`` and every ``Completion`` field but its timings are the same
-with the tracer on and off.  The card test (marker ``cuda``, skips without
-CUDA) runs on the card with ``PYTHONPATH=src python -m pytest -q
---noconftest tests/test_torch_trace.py``.
+with the tracer on and off.  ``model.norm_codes`` counts the SINT Mamba
+norms that write their projection's codes in one launch: two a layer a
+prefill on the card, none on the CPU or in a decode step.  The card tests
+(marker ``cuda``, skip without CUDA) run on the card with
+``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_trace.py``.
 """
 
 import collections
@@ -304,7 +306,47 @@ def test_tokens_and_stats_equal_with_tracer_on_and_off(arch, kind):
             (off_stats.steps, off_stats.admitted)
 
 
+def prefill_and_decode_counters(api, params, device):
+    """The counters of one prefill of two 9-token prompts, then of one
+    decode step of two rows on a zero arena."""
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, api.cfg.vocab, (2, 9))).to(device)
+    trace.enable()
+    api.prefill(params, {"tokens": tokens}, 16)
+    prefill = trace.drain()["counters"]
+    api.decode(params, api.init_cache(2, 16, device=device),
+               {"tokens": tokens[:, :1]}, 9)
+    decode = trace.drain()["counters"]
+    trace.disable()
+    return prefill, decode
+
+
+@pytest.mark.parametrize("arch", ("mamba2_370m", "jamba_1_5_large_398b"))
+def test_cpu_sint_mamba_counts_no_norm_codes(arch):
+    """On the CPU the SINT Mamba layers norm and quantize with the eager
+    ops: a prefill and a decode step count no ``model.norm_codes``."""
+    api, params = model(arch)
+    assert prefill_and_decode_counters(api, params, "cpu") == ({}, {})
+
+
 # -- on the card ---------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ("mamba2_370m", "jamba_1_5_large_398b"))
+def test_card_sint_prefill_counts_norm_codes(arch):
+    """On the card a SINT prefill counts two ``model.norm_codes`` a Mamba
+    layer (its pre-norm and its gated norm) and a decode step none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the norm_codes kernel")
+    cfg = get_config(arch).reduced().with_(quant="SINT")
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(0))
+    n_mamba = cfg.n_layers - cfg.n_layers // max(cfg.attn_period, 1) \
+        if cfg.family == "hybrid" else cfg.n_layers
+    with torch.no_grad():
+        counters = prefill_and_decode_counters(api, params, "cuda")
+    assert counters == ({"model.norm_codes": 2 * n_mamba}, {})
 
 
 @pytest.mark.cuda
